@@ -1,6 +1,6 @@
-"""TPU-native gradient-based trajectory optimization framework.
+"""Gradient-based trajectory optimization framework in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
+A from-scratch JAX/XLA re-design of the capabilities of
 EpicOne1/grad_traj_optimization (IROS-2017 "Gradient-Based Online Safe
 Trajectory Generation for Quadrotor Flight in Complex Environments"):
 
@@ -11,11 +11,11 @@ Trajectory Generation for Quadrotor Flight in Complex Environments"):
     (opt.penalty, opt.descent)
   * front-end path search seeding and dynamic-obstacle prediction (search.*)
   * batched (vmap) and sharded (mesh/pjit) solving of thousands of
-    scenarios per chip (solve, parallel.*)
+    scenarios per device (solve, parallel.*)
 
 Unlike the reference (single-threaded C++/Eigen/NLopt/ROS), everything here
 is a pure function over pytrees: one jitted ``solve`` maps a ``Scenario``
-batch to a ``Solution`` batch, scaled with ``vmap`` on a chip and
+batch to a ``Solution`` batch, scaled with ``vmap`` on a device and
 ``jax.sharding`` across a mesh.
 """
 
@@ -32,8 +32,6 @@ from grad_traj_optimization_tpu.solver import (
     make_scenario,
     solve,
     solve_batch,
-    solve_batch_fused,
-    solve_batch_kernel,
 )
 
 __version__ = "0.1.0"
@@ -53,6 +51,4 @@ __all__ = [
     "make_scenario",
     "solve",
     "solve_batch",
-    "solve_batch_fused",
-    "solve_batch_kernel",
 ]

@@ -2,59 +2,35 @@
 
 The reference has no checkpointing (benchmark results are append-only
 text files, compare2.cpp:219).  Here everything is a pytree, so saving
-and restoring solver state is trivial; this module provides a small
-orbax-backed helper for pod-scale Monte-Carlo runs (SURVEY.md section 5)
-with a NumPy .npz fallback when orbax is unavailable.
+and restoring solver state is trivial; this module stores the leaves in
+one NumPy ``.npz`` file for long Monte-Carlo runs (SURVEY.md section 5).
 """
 
 from __future__ import annotations
-
-import os
 
 import numpy as np
 import jax
 
 
-def _leaves_with_paths(tree):
-    flat, treedef = jax.tree_util.tree_flatten(tree)
-    return flat, treedef
+def _npz_path(path: str) -> str:
+    return path if path.endswith(".npz") else path + ".npz"
 
 
 def save(path: str, tree) -> str:
-    """Save a pytree (Scenario/Solution batch, solver state, ...).
-
-    Falls back to .npz only when orbax is *not installed*; a real orbax
-    write failure (permissions, disk full, bad tree) propagates instead
-    of silently changing the on-disk format.
-    """
-    try:
-        import orbax.checkpoint as ocp
-    except ImportError:
-        flat, _ = jax.tree_util.tree_flatten(tree)
-        np.savez_compressed(
-            path if path.endswith(".npz") else path + ".npz",
-            **{f"leaf_{i}": np.asarray(x) for i, x in enumerate(flat)},
-        )
-        return path if path.endswith(".npz") else path + ".npz"
-
-    ckptr = ocp.StandardCheckpointer()
-    ckptr.save(os.path.abspath(path), tree, force=True)
-    ckptr.wait_until_finished()
-    return path
+    """Save a pytree (Scenario/Solution batch, solver state, ...) as
+    ``.npz``; returns the file written."""
+    flat, _ = jax.tree_util.tree_flatten(tree)
+    out = _npz_path(path)
+    np.savez_compressed(
+        out, **{f"leaf_{i}": np.asarray(x) for i, x in enumerate(flat)}
+    )
+    return out
 
 
 def restore(path: str, like):
     """Restore a pytree saved by :func:`save`; ``like`` provides the
-    structure (and dtypes for the orbax path)."""
-    try:
-        import orbax.checkpoint as ocp
-
-        if os.path.isdir(path):
-            ckptr = ocp.StandardCheckpointer()
-            return ckptr.restore(os.path.abspath(path), like)
-    except Exception:
-        pass
-    npz = np.load(path if path.endswith(".npz") else path + ".npz")
+    structure."""
     flat, treedef = jax.tree_util.tree_flatten(like)
-    leaves = [npz[f"leaf_{i}"] for i in range(len(flat))]
+    with np.load(_npz_path(path)) as npz:
+        leaves = [npz[f"leaf_{i}"] for i in range(len(flat))]
     return jax.tree_util.tree_unflatten(treedef, leaves)

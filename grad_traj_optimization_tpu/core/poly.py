@@ -1,6 +1,6 @@
 """Quintic piecewise-polynomial core.
 
-TPU-first redesign of the reference's polynomial machinery
+Batched redesign of the reference's polynomial machinery
 (qp_generator.cpp:40-54 mapping matrix A, grad_traj_optimizer.cpp:451-551
 evaluation/time matrices, polynomial_traj.hpp metrics).
 
@@ -39,7 +39,7 @@ from jax import lax as _lax
 
 
 def _einsum(subscripts, *operands):
-    """einsum pinned to f32 accumulation (TPU MXU defaults to bf16)."""
+    """einsum pinned to full f32 precision (no TF32/bf16 passes)."""
     return jnp.einsum(subscripts, *operands, precision=_lax.Precision.HIGHEST)
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,6 @@
 """Closed-form minimum-snap QP seeding and optimization dependencies.
 
-TPU-first rebuild of the reference ``TrajectoryGenerator``
+Batched rebuild of the reference ``TrajectoryGenerator``
 (qp_generator.{h,cpp}).  Differences by design:
 
 * No hidden file-scope state.  The reference keeps ``int m``, ``startVel``,
@@ -35,7 +35,7 @@ from jax import lax as _lax
 
 
 def _einsum(subscripts, *operands):
-    """einsum pinned to f32 accumulation (TPU MXU defaults to bf16)."""
+    """einsum pinned to full f32 precision (no TF32/bf16 passes)."""
     return jnp.einsum(subscripts, *operands, precision=_lax.Precision.HIGHEST)
 
 from grad_traj_optimization_tpu.core import poly

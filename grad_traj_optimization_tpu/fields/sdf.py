@@ -1,12 +1,12 @@
 """Occupancy grid + Euclidean distance transform + trilinear sampling.
 
-TPU-native rebuild of the reference ``SDFMap`` (src/sdf_map.cpp).  The
+Batched rebuild of the reference ``SDFMap`` (src/sdf_map.cpp).  The
 reference computes the exact unsigned EDT with the
 Felzenszwalb-Huttenlocher lower-envelope algorithm, three separable passes
 z -> y -> x (sdf_map.cpp:266-368).  The lower-envelope scan is inherently
-sequential with data-dependent backtracking — a poor fit for the VPU — so
-this module computes the *same exact transform* with TPU-friendly
-primitives:
+sequential with data-dependent backtracking — a poor fit for a wide
+data-parallel device — so this module computes the *same exact transform*
+with dense parallel primitives:
 
 * pass 1 (binary input): 1-D nearest-occupied distance via two associative
   ``cummin`` scans (parallel prefix), then squared;
@@ -119,7 +119,8 @@ def _minplus_parabola_lines(f, chunk_bytes: int = 1 << 28):
     """out[b, q] = min_v (f[b, v] + (q - v)^2) for each line b.
 
     Dense vectorized lower envelope: O(n^2) per line but embarrassingly
-    parallel across lines and fully on the VPU.  Memory is bounded by
+    parallel across lines (XLA fuses the broadcast-add-min into one
+    reduction).  Memory is bounded by
     processing lines in blocks of ``tb`` such that tb * n * n * 4 <=
     chunk_bytes.
     """
@@ -147,8 +148,7 @@ def _minplus_axis(f, axis, chunk_bytes: int = 1 << 28):
     return jnp.moveaxis(out.reshape(shape), -1, axis)
 
 
-def edt(occ, resolution: float, prev_dist=None, chunk_bytes: int = 1 << 28,
-        backend: str = "auto"):
+def edt(occ, resolution: float, prev_dist=None, chunk_bytes: int = 1 << 28):
     """Exact unsigned Euclidean distance transform of an occupancy grid.
 
     Reference: SDFMap::updateESDF3d (sdf_map.cpp:310-368) — separable
@@ -159,52 +159,32 @@ def edt(occ, resolution: float, prev_dist=None, chunk_bytes: int = 1 << 28,
       occ: (nx, ny, nz) occupancy in {0, 1}.
       prev_dist: optional previous distance buffer for incremental updates
         (the reference's min with the old buffer).
-      backend: "auto" (Pallas kernel on TPU, jnp elsewhere), "pallas",
-        or "jnp" for the min-plus passes.
     Returns:
       (nx, ny, nz) float32 distance in meters.
     """
-    if backend == "auto":
-        backend = "pallas" if jax.default_backend() == "tpu" else "jnp"
     sq = _nearest_sq_1d(occ, axis=2)
-    if backend == "pallas":
-        from grad_traj_optimization_tpu.ops import edt_pallas
-
-        sq = edt_pallas.minplus_axis(sq, axis=1)
-        sq = edt_pallas.minplus_axis(sq, axis=0)
-    else:
-        sq = _minplus_axis(sq, axis=1, chunk_bytes=chunk_bytes)
-        sq = _minplus_axis(sq, axis=0, chunk_bytes=chunk_bytes)
+    sq = _minplus_axis(sq, axis=1, chunk_bytes=chunk_bytes)
+    sq = _minplus_axis(sq, axis=0, chunk_bytes=chunk_bytes)
     dist = resolution * jnp.sqrt(sq)
     base = FREE_DIST if prev_dist is None else prev_dist
     return jnp.minimum(dist, base).astype(jnp.float32)
 
 
-def edt_batch(occ, resolution: float, backend: str = "auto",
-              chunk_bytes: int = 1 << 28):
+def edt_batch(occ, resolution: float, chunk_bytes: int = 1 << 28):
     """EDT of a batch of occupancy grids in one shot.
 
     A batch of grids is just more independent lines per separable pass, so
-    the batch axis folds into the line dimension of the same kernels — one
-    launch per pass for the whole batch, no vmap-of-kernel (which lowers
-    poorly for Pallas calls).
+    the batch axis folds into the line dimension of the same min-plus
+    reduction — one pass program for the whole batch.
 
     Args:
       occ: (batch, nx, ny, nz).
     Returns:
       (batch, nx, ny, nz) float32 distances.
     """
-    if backend == "auto":
-        backend = "pallas" if jax.default_backend() == "tpu" else "jnp"
     B, nx, ny, nz = occ.shape
     sq = _nearest_sq_1d(occ, axis=3)
-
-    if backend == "pallas":
-        from grad_traj_optimization_tpu.ops import edt_pallas
-
-        lines_fn = edt_pallas.minplus_lines
-    else:
-        lines_fn = lambda f: _minplus_parabola_lines(f, chunk_bytes)
+    lines_fn = lambda f: _minplus_parabola_lines(f, chunk_bytes)
 
     # pass along y: lines are (B, nx, nz) x ny
     sq = jnp.moveaxis(sq, 2, -1)  # (B, nx, nz, ny)
@@ -398,34 +378,46 @@ def distance_at(dist, origin, resolution, pos):
     return jnp.where(ok, d, -1.0)
 
 
-#: z-column length up to which the row-gather lookup mode is used
-_ROW_MODE_MAX_NZ = 64
+def _window_ok(pos, origin, res, grid_shape, offset, full):
+    """In-window test of the exact-crop frame (see solver.crop_scenarios).
+
+    The window is cells [offset, offset + grid_shape) of a ``full``-cell
+    map at ``origin``.  True map faces keep the reference's 1e-4 margin
+    (isInMap, sdf_map.cpp:55-69); interior crop faces take a half-cell
+    margin so every in-window sample's interpolation corners stay inside
+    the window (the trilinear stencil reaches +-res/2).  With offset 0
+    and full == grid_shape this is exactly :func:`in_map`.
+    """
+    n = jnp.asarray(grid_shape, jnp.int32)
+    lo_face = origin + offset.astype(pos.dtype) * res
+    hi_face = origin + (offset + n).astype(pos.dtype) * res
+    m_lo = jnp.where(offset == 0, 1e-4, 0.5 * res).astype(pos.dtype)
+    m_hi = jnp.where(offset + n == full, 1e-4, 0.5 * res).astype(pos.dtype)
+    return jnp.all((pos > lo_face + m_lo) & (pos < hi_face - m_hi), axis=-1)
 
 
 def trilinear_flat(flat, base, grid_shape, origin, resolution, pos,
-                   mode: str = "auto"):
+                   offset=None, full=None):
     """Trilinear distance + gradient against a FLAT field buffer.
 
     ``flat`` may hold many scenarios' grids back to back; ``base`` is this
     scenario's offset.  Keeping the buffer unbatched under vmap makes the
-    whole batch's corner lookups one large flat gather — XLA lowers
-    per-scenario batched gathers orders of magnitude slower.
+    whole batch's corner lookups one large flat gather of the 8 corner
+    scalars per sample.
 
-    Two lookup modes (identical results):
-
-    * ``elem``: gather the 8 corner scalars directly.  TPU XLA lowers
-      scalar gathers element-by-element (~35 ns/element measured) — fine
-      on CPU, catastrophic on TPU.
-    * ``row``: gather the 4 (x, y)-neighbor **z-columns** — rows of the
-      natural x-major layout, the gather form TPU handles at bandwidth —
-      then select z and z+1 with a masked lane reduction.  Used
-      automatically when nz <= 64 (the gathered volume grows with nz).
+    Exact-crop frame: with ``offset``/``full`` ((3,) int32) the buffer
+    holds cells [offset, offset + grid_shape) of a ``full``-cell map
+    whose origin is still ``origin``.  All floor/fraction arithmetic and
+    the corner clamp stay in the full map's frame, and only the final
+    cell index subtracts the offset, so in-window lookups are
+    bitwise-identical to the full grid; samples outside the window read
+    as out-of-map.
 
     Reference semantics: getDistWithGradTrilinear (sdf_map.cpp:185-242);
     out-of-map -> (-1, 0) (grad is C++-UB there, defined as zero).
 
     Args:
-      grid_shape: static (nx, ny, nz).
+      grid_shape: static (nx, ny, nz) of the buffer's grid.
       pos: (..., 3).
     Returns:
       d: (...,), g: (..., 3).
@@ -433,61 +425,36 @@ def trilinear_flat(flat, base, grid_shape, origin, resolution, pos,
     pos = jnp.asarray(pos)
     origin = jnp.asarray(origin, dtype=pos.dtype)
     res = jnp.asarray(resolution, dtype=pos.dtype)
-    ok = in_map(pos, origin, res, grid_shape)
+    nx, ny, nz = grid_shape
+    if offset is None:
+        offset = jnp.zeros((3,), jnp.int32)
+        full = jnp.asarray(grid_shape, jnp.int32)
+    offset = jnp.asarray(offset, jnp.int32)
+    full = jnp.asarray(full, jnp.int32)
+    ok = _window_ok(pos, origin, res, grid_shape, offset, full)
 
     pos_m = pos - 0.5 * res
     idx = pos_to_index(pos_m, origin, res)
     idx_pos = (idx.astype(pos.dtype) + 0.5) * res + origin
     diff = (pos - idx_pos) / res  # in [0, 1)
 
-    nx, ny, nz = grid_shape
-    if mode == "auto":
-        mode = "row" if nz <= _ROW_MODE_MAX_NZ else "elem"
+    def cell(i, axis):
+        # clamp against the FULL map (reference getDistance clamp,
+        # sdf_map.cpp:166-174), then window-local; the local clip only
+        # bounds out-of-window samples, whose values are masked below
+        i = jnp.clip(i, 0, full[axis] - 1) - offset[axis]
+        return jnp.clip(i, 0, grid_shape[axis] - 1)
 
-    if mode == "row":
-        rows = flat.reshape(-1, nz)
-        row_base = base // nz
-        cx0 = jnp.clip(idx[..., 0], 0, nx - 1)
-        cx1 = jnp.clip(idx[..., 0] + 1, 0, nx - 1)
-        cy0 = jnp.clip(idx[..., 1], 0, ny - 1)
-        cy1 = jnp.clip(idx[..., 1] + 1, 0, ny - 1)
-        # 4 xy-corner rows, order (a, b) = (00, 01, 10, 11)
-        ridx = jnp.stack(
-            [
-                row_base + cx0 * ny + cy0,
-                row_base + cx0 * ny + cy1,
-                row_base + cx1 * ny + cy0,
-                row_base + cx1 * ny + cy1,
-            ],
-            axis=-1,
-        )  # (..., 4)
-        cols = jnp.take(rows, ridx, axis=0)  # (..., 4, nz)
-        k = jnp.arange(nz, dtype=idx.dtype)
-        iz0 = jnp.clip(idx[..., 2], 0, nz - 1)[..., None, None]
-        iz1 = jnp.clip(idx[..., 2] + 1, 0, nz - 1)[..., None, None]
-        m0 = (k == iz0).astype(pos.dtype)
-        m1 = (k == iz1).astype(pos.dtype)
-        vz0 = jnp.sum(cols * m0, axis=-1)  # (..., 4)
-        vz1 = jnp.sum(cols * m1, axis=-1)  # (..., 4)
-        # assemble in (a, b, c) bit order abc -> slot 4a + 2b + c
-        v8 = jnp.stack(
-            [
-                vz0[..., 0], vz1[..., 0], vz0[..., 1], vz1[..., 1],
-                vz0[..., 2], vz1[..., 2], vz0[..., 3], vz1[..., 3],
-            ],
-            axis=-1,
-        )
-    else:
-        # one fused gather of all 8 corner scalars
-        offs = jnp.asarray(
-            [[a, b, c] for a in (0, 1) for b in (0, 1) for c in (0, 1)],
-            dtype=idx.dtype,
-        )  # (8, 3)
-        corner = idx[..., None, :] + offs  # (..., 8, 3)
-        cx = jnp.clip(corner[..., 0], 0, nx - 1)
-        cy = jnp.clip(corner[..., 1], 0, ny - 1)
-        cz = jnp.clip(corner[..., 2], 0, nz - 1)
-        v8 = jnp.take(flat, base + (cx * ny + cy) * nz + cz)  # (..., 8)
+    # one fused gather of all 8 corner scalars
+    offs = jnp.asarray(
+        [[a, b, c] for a in (0, 1) for b in (0, 1) for c in (0, 1)],
+        dtype=idx.dtype,
+    )  # (8, 3)
+    corner = idx[..., None, :] + offs  # (..., 8, 3)
+    cx = cell(corner[..., 0], 0)
+    cy = cell(corner[..., 1], 1)
+    cz = cell(corner[..., 2], 2)
+    v8 = jnp.take(flat, base + (cx * ny + cy) * nz + cz)  # (..., 8)
     v = [
         [[v8[..., 4 * a + 2 * b + c] for c in (0, 1)] for b in (0, 1)]
         for a in (0, 1)
@@ -526,83 +493,6 @@ def distance_and_gradient(dist, origin, resolution, pos):
     return trilinear_flat(
         dist.reshape(-1), 0, dist.shape, origin, resolution, pos
     )
-
-
-def trilinear_mxu(grid, origin, resolution, pos, precision: str = "highest"):
-    """Trilinear distance + gradient as dense MXU contractions (no gather).
-
-    TPU XLA lowers gathers element-by-element (~35 ns each), which makes
-    the 8-corner lookup the entire cost of the penalty optimizer.  But the
-    interpolated distance AND its gradient are *linear functionals* of the
-    grid with separable per-axis weights:
-
-        d(s)  = wx_n(s) . G . wy_n(s) (x) wz_n(s)
-        gx(s) = wx_d(s) . G . wy_n(s) (x) wz_n(s)   (etc.)
-
-    where wx_n is 2-hot ((1-dx) at ix, dx at ix+1, summed when clamping
-    collides) and wx_d its derivative (+-1/res).  Contracting axis by axis
-    turns the whole lookup into three dense einsums that ride the MXU —
-    ~50x more FLOPs than the sparse lookup, orders of magnitude faster
-    than the gather on TPU.  Exactly equal to the gather-based modes
-    (same clamped-corner semantics, sdf_map.cpp:185-242).
-
-    Args:
-      grid: (nx, ny, nz) distance field (ONE scenario; vmap for batches).
-      pos: (S, 3) query positions.
-      precision: "highest" (f32 accumulation) or "high" (bf16x3 MXU
-        passes — faster, parity-validate on chip before use).
-    Returns:
-      d: (S,), g: (S, 3).
-    """
-    pos = jnp.asarray(pos)
-    lead_shape = pos.shape[:-1]
-    pos2 = pos.reshape(-1, 3)
-    origin = jnp.asarray(origin, dtype=pos.dtype)
-    res = jnp.asarray(resolution, dtype=pos.dtype)
-    nx, ny, nz = grid.shape
-    ok = in_map(pos2, origin, res, grid.shape)
-
-    pos_m = pos2 - 0.5 * res
-    idx = pos_to_index(pos_m, origin, res)
-    idx_pos = (idx.astype(pos.dtype) + 0.5) * res + origin
-    diff = (pos2 - idx_pos) / res
-
-    def weights(i, frac, n):
-        """2-hot interpolation + derivative weights over axis length n."""
-        ar = jnp.arange(n, dtype=idx.dtype)
-        i0 = jnp.clip(i, 0, n - 1)[:, None]
-        i1 = jnp.clip(i + 1, 0, n - 1)[:, None]
-        h0 = (ar == i0).astype(pos.dtype)
-        h1 = (ar == i1).astype(pos.dtype)
-        w_n = h0 * (1.0 - frac[:, None]) + h1 * frac[:, None]
-        w_d = (h1 - h0) / res
-        return w_n, w_d
-
-    wx_n, wx_d = weights(idx[:, 0], diff[:, 0], nx)
-    wy_n, wy_d = weights(idx[:, 1], diff[:, 1], ny)
-    wz_n, wz_d = weights(idx[:, 2], diff[:, 2], nz)
-
-    # axis-by-axis contraction (f32 or bf16x3 accumulation on the MXU)
-    prec = (
-        jax.lax.Precision.HIGHEST
-        if precision == "highest"
-        else jax.lax.Precision.HIGH
-    )
-    ein = functools.partial(jnp.einsum, precision=prec)
-    t1n = ein("sx,xyz->syz", wx_n, grid)
-    t1d = ein("sx,xyz->syz", wx_d, grid)
-    t2nn = ein("sy,syz->sz", wy_n, t1n)
-    t2nd = ein("sy,syz->sz", wy_d, t1n)
-    t2dn = ein("sy,syz->sz", wy_n, t1d)
-    d = ein("sz,sz->s", wz_n, t2nn)
-    gz = ein("sz,sz->s", wz_d, t2nn)
-    gy = ein("sz,sz->s", wz_n, t2nd)
-    gx = ein("sz,sz->s", wz_n, t2dn)
-
-    g = jnp.stack([gx, gy, gz], axis=-1)
-    d = jnp.where(ok, d, -1.0)
-    g = jnp.where(ok[:, None], g, 0.0)
-    return d.reshape(lead_shape), g.reshape(lead_shape + (3,))
 
 
 def max_distance(dist):

@@ -1,19 +1,25 @@
 """ctypes bindings for the native host engine (native/gtop_core.cpp).
 
-The TPU path owns batched solving; this binding exposes the C++ engine
-for host-side work: oracle-grade double-precision solves, low-latency
-single solves without an accelerator round-trip, and fast multithreaded
-EDT builds for data generation.
+The accelerator path owns batched solving; this binding exposes the C++
+engine for host-side work: oracle-grade double-precision solves, the
+exact kinodynamic A* rung of the mission pipeline, and fast
+multithreaded EDT builds for data generation.
 
-The library is built on demand (``make -C native``) and loaded lazily;
-:func:`available` reports whether it is usable so callers can fall back
-to the JAX path.
+The library is compiled with ``-march=native``, so a build is only valid
+on the host that made it.  :func:`load` therefore loads a library only
+when its stamp (a hash of the tracked sources plus this host's CPU
+identity) matches; otherwise it rebuilds from the tracked sources under
+a file lock, and a failed build raises.  :func:`available` reports
+whether the library is usable.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
+import hashlib
 import os
+import platform
 import subprocess
 
 import numpy as np
@@ -22,50 +28,94 @@ _LIB = None
 _NATIVE_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "native"
 )
-_LIB_PATH = os.path.join(_NATIVE_DIR, "libgtop_core.so")
+_LIB_NAME = "libgtop_core.so"
+_SOURCES = ("gtop_core.cpp", "Makefile")
 _ABI_VERSION = 6  # must match gtop_abi_version() in gtop_core.cpp
 
 
-def _stale() -> bool:
-    """True when the .so is missing or older than its sources (a stale
-    prebuilt library would silently ignore newer cfg ABI fields)."""
-    if not os.path.exists(_LIB_PATH):
-        return True
-    so_mtime = os.path.getmtime(_LIB_PATH)
-    for name in ("gtop_core.cpp", "Makefile"):
-        src = os.path.join(_NATIVE_DIR, name)
-        if os.path.exists(src) and os.path.getmtime(src) > so_mtime:
-            return True
-    return False
+def _host_id() -> str:
+    """This host's CPU identity: what ``-march=native`` compiles for."""
+    ident = [platform.machine()]
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                key = line.split(":", 1)[0].strip()
+                if key in ("model name", "flags", "Features", "CPU part"):
+                    ident.append(line.strip())
+                if line.strip() == "":
+                    break  # the first processor describes the host
+    except OSError:
+        ident.append(platform.processor())
+    return hashlib.sha256("\n".join(ident).encode()).hexdigest()
 
 
-def _load():
+def _stamp(native_dir: str) -> str:
+    """Hash of the tracked sources plus this host's CPU identity."""
+    h = hashlib.sha256()
+    for name in _SOURCES:
+        with open(os.path.join(native_dir, name), "rb") as f:
+            h.update(name.encode() + b"\0" + f.read() + b"\0")
+    return f"{h.hexdigest()} {_host_id()}"
+
+
+def _is_current(native_dir: str) -> bool:
+    """True when the library exists and its stamp names these sources
+    built on this host."""
+    lib = os.path.join(native_dir, _LIB_NAME)
+    try:
+        with open(lib + ".stamp") as f:
+            recorded = f.read().strip()
+    except OSError:
+        return False
+    return os.path.exists(lib) and recorded == _stamp(native_dir)
+
+
+def build(native_dir: str = _NATIVE_DIR, force: bool = True) -> str:
+    """Compile the library from the tracked sources (``make -B``) and
+    stamp it; returns its path.  Serialized across processes by a lock
+    file; the library is swapped in atomically.  Raises RuntimeError
+    when the build fails."""
+    lib = os.path.join(native_dir, _LIB_NAME)
+    with open(os.path.join(native_dir, ".build.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not force and _is_current(native_dir):
+            return lib
+        tmp = f"{_LIB_NAME}.tmp{os.getpid()}"
+        try:
+            subprocess.run(
+                ["make", "-B", "-C", native_dir, f"LIB={tmp}"],
+                check=True, capture_output=True, text=True, timeout=300,
+            )
+        except (OSError, subprocess.SubprocessError) as e:
+            detail = getattr(e, "stderr", "") or ""
+            raise RuntimeError(
+                f"native build failed: {e}\n{detail[-2000:]}"
+            ) from e
+        os.replace(os.path.join(native_dir, tmp), lib)
+        with open(lib + ".stamp", "w") as f:
+            f.write(_stamp(native_dir) + "\n")
+    return lib
+
+
+def load():
+    """The loaded library, built first unless a current stamped build
+    for this host exists.  Raises RuntimeError when it cannot be built
+    or its ABI does not match."""
     global _LIB
     if _LIB is not None:
         return _LIB
-    if _stale():
-        try:
-            subprocess.run(
-                ["make", "-C", _NATIVE_DIR], check=True,
-                capture_output=True, timeout=120,
-            )
-        except Exception as e:
-            # toolchain missing/broken: fall through and try the
-            # existing .so — the ABI check below decides whether a
-            # prebuilt library is actually usable (an mtime-stale but
-            # ABI-current .so, e.g. after a checkout touched sources,
-            # stays available)
-            if not os.path.exists(_LIB_PATH):
-                raise RuntimeError(f"native build failed: {e}") from e
-    lib = ctypes.CDLL(_LIB_PATH)
+    lib_path = build(force=False)
+    try:
+        lib = ctypes.CDLL(lib_path)
+    except OSError as e:
+        raise RuntimeError(f"{lib_path} does not load: {e}") from e
     try:
         abi = lib.gtop_abi_version()
     except AttributeError:
         abi = 1
     if abi != _ABI_VERSION:
         raise RuntimeError(
-            f"libgtop_core.so ABI {abi} != expected {_ABI_VERSION}; "
-            "run `make -B -C native`"
+            f"libgtop_core.so ABI {abi} != expected {_ABI_VERSION}"
         )
     f32p = ctypes.POINTER(ctypes.c_float)
     f64p = ctypes.POINTER(ctypes.c_double)
@@ -123,9 +173,9 @@ def _load():
 
 def available() -> bool:
     try:
-        _load()
+        load()
         return True
-    except Exception:
+    except RuntimeError:
         return False
 
 
@@ -139,7 +189,7 @@ def _f64p(a):
 
 def edt(occ: np.ndarray, resolution: float) -> np.ndarray:
     """Multithreaded exact EDT (Felzenszwalb), float32 in/out."""
-    lib = _load()
+    lib = load()
     occ = np.ascontiguousarray(occ, dtype=np.float32)
     out = np.empty_like(occ)
     nx, ny, nz = occ.shape
@@ -149,7 +199,7 @@ def edt(occ: np.ndarray, resolution: float) -> np.ndarray:
 
 def trilinear(dist, origin, resolution, queries):
     """Batched trilinear distance + gradient."""
-    lib = _load()
+    lib = load()
     dist = np.ascontiguousarray(dist, dtype=np.float32)
     origin = np.ascontiguousarray(origin, dtype=np.float32)
     q = np.ascontiguousarray(queries, dtype=np.float32).reshape(-1, 3)
@@ -195,7 +245,7 @@ def solve(dist, origin, resolution, waypoints, cfg, steps=(2,)):
     Returns:
       (coeff (m, 3, 6) float64, times (m,), cost).
     """
-    lib = _load()
+    lib = load()
     dist = np.ascontiguousarray(dist, dtype=np.float32)
     origin32 = np.ascontiguousarray(origin, dtype=np.float32)
     wp = np.ascontiguousarray(waypoints, dtype=np.float64)
@@ -223,7 +273,7 @@ def solve_batch(dist, origin, resolution, waypoints, cfg, steps=(2,)):
     (gtop_solve is reentrant — deliberately unlike the reference's
     file-scope-stateful TrajectoryGenerator, SURVEY.md quirk 6).
     """
-    lib = _load()
+    lib = load()
     dist = np.ascontiguousarray(dist, dtype=np.float32)
     if dist.ndim == 3:
         dist = dist[None]
@@ -292,7 +342,7 @@ def hybrid_search(
     Returns (pos (K,3), vel (K,3), acc (K,3), times (K-1,), status)
     where status is HYBRID_{NO_PATH, REACH_END, REACH_HORIZON}.
     """
-    lib = _load()
+    lib = load()
     f32p = ctypes.POINTER(ctypes.c_float)
     f64p = ctypes.POINTER(ctypes.c_double)
     lib.gtop_hybrid_search.argtypes = [
@@ -351,10 +401,10 @@ def kino_search(
     """Exact host-side kinodynamic A* (reference algorithm).
 
     Returns (pos (K,3), vel (K,3), acc (K,3), times (K-1,), reached).
-    The TPU beam search (search/kinodynamic.py) approximates this; use
+    The batched beam search (search/kinodynamic.py) approximates this; use
     this exact version for host seeding and beam-quality checks.
     """
-    lib = _load()
+    lib = load()
     f32p = ctypes.POINTER(ctypes.c_float)
     f64p = ctypes.POINTER(ctypes.c_double)
     lib.gtop_kino_search.argtypes = [
@@ -397,7 +447,7 @@ def free_shot(p0, p1, v0, max_vel: float = 3.0):
 
     Returns (coef (3, 4) ascending powers, T, v1 (3,)).
     """
-    lib = _load()
+    lib = load()
     p0 = np.ascontiguousarray(p0, dtype=np.float64)
     p1 = np.ascontiguousarray(p1, dtype=np.float64)
     v0 = np.ascontiguousarray(v0, dtype=np.float64)
@@ -430,7 +480,7 @@ class NativeRRTPlanner:
                  steer_len: float = 1.5, min_radius: float = 0.3,
                  goal_bias: float = 0.15, radius_margin: float | None = None,
                  seed: int = 0):
-        self._lib = _load()
+        self._lib = load()
         dist = np.ascontiguousarray(dist_grid, dtype=np.float32)
         self._shape = dist.shape
         self.goal = np.asarray(goal, dtype=np.float64).copy()

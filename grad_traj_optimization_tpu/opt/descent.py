@@ -31,7 +31,7 @@ window 8 reaches geomean 0.85x the monotone rule's 100-iteration cost.
 
 Preconditioning with the smoothness Hessian metric (Rpp eig-space,
 Levenberg-Marquardt damped) was prototyped and measured 4-15x WORSE at
-equal budgets (scripts/proto_precond.py): the collision term owns the
+equal budgets: the collision term owns the
 curvature in exactly the directions Rpp^-1 amplifies.  Don't redo.
 """
 
@@ -141,92 +141,4 @@ def minimize(
     )
     if not record_trace:
         trace = jnp.full((iters,), jnp.nan, dtype=dp0.dtype)
-    return DescentResult(dp=dp, cost=cost, n_accept=n_acc, cost_trace=trace)
-
-
-def minimize_batch(
-    cost_and_grad: Callable,
-    dp0,
-    lb,
-    ub,
-    iters: int,
-    cfg: OptimizerConfig,
-    record_trace: bool = False,
-) -> DescentResult:
-    """Batch-first variant of :func:`minimize`.
-
-    ``cost_and_grad(dp) -> (cost (B,), grad (B, 3, P))``; dp0/lb/ub are
-    (B, 3, P).  Acceptance, step sizes and BB pairs are per scenario.
-    Produces the same iterates as vmapping :func:`minimize` over the
-    batch, but lets the cost function use natively batched kernels.
-    """
-    dp0 = jnp.clip(jnp.asarray(dp0), lb, ub)
-    B = dp0.shape[0]
-    use_bb = cfg.step_rule == "bb"
-    W = cfg.accept_window
-
-    def norms(g):
-        return jnp.sqrt(jnp.sum(g * g, axis=(1, 2), keepdims=True))
-
-    def body(state, _):
-        dp, grad, lr, scale, hist, ptr, best_c, best_dp, n_acc = state
-        if use_bb:
-            step = (lr * scale)[:, None, None]
-        else:
-            step = lr[:, None, None] / (norms(grad) + 1e-12)
-        cand = jnp.clip(dp - step * grad, lb, ub)
-        c2, g2 = cost_and_grad(cand)
-        accept = c2 < jnp.max(hist, axis=1)  # (B,)
-        am = accept[:, None, None]
-
-        if use_bb:
-            s = cand - dp
-            y = g2 - grad
-            sy = jnp.sum(s * y, axis=(1, 2))
-            yy = jnp.sum(y * y, axis=(1, 2))
-            lr_bb = jnp.clip(
-                jnp.abs(sy) / jnp.maximum(yy, 1e-20),
-                cfg.lr_min, cfg.lr_max,
-            )
-            lr = jnp.where(accept, lr_bb, lr)
-            scale = jnp.where(accept, 1.0, scale * cfg.lr_shrink)
-            scale = jnp.maximum(scale, 1e-8)
-        else:
-            lr = jnp.where(accept, lr * cfg.lr_grow, lr * cfg.lr_shrink)
-            lr = jnp.clip(lr, cfg.lr_min, cfg.lr_max)
-
-        hist = jnp.where(
-            accept[:, None] & (jnp.arange(W)[None, :] == ptr[:, None]),
-            c2[:, None], hist,
-        )
-        ptr = jnp.where(accept, (ptr + 1) % W, ptr)
-        improved = c2 < best_c
-        best_dp = jnp.where(improved[:, None, None], cand, best_dp)
-        best_c = jnp.where(improved, c2, best_c)
-
-        dp = jnp.where(am, cand, dp)
-        grad = jnp.where(am, g2, grad)
-        n_acc = n_acc + accept.astype(jnp.int32)
-        out = best_c if record_trace else None
-        return (dp, grad, lr, scale, hist, ptr, best_c, best_dp,
-                n_acc), out
-
-    c0, g0 = cost_and_grad(dp0)
-    if use_bb:
-        lr_init = cfg.lr0 / (norms(g0)[:, 0, 0] + 1e-12)
-    else:
-        lr_init = jnp.full((B,), cfg.lr0, dp0.dtype)
-    init = (
-        dp0, g0, lr_init, jnp.ones((B,), dp0.dtype),
-        jnp.broadcast_to(c0[:, None], (B, W)),
-        jnp.zeros((B,), jnp.int32), c0, dp0,
-        jnp.zeros((B,), jnp.int32),
-    )
-    (_, _, _, _, _, _, cost, dp, n_acc), trace = jax.lax.scan(
-        body, init, None, length=iters
-    )
-    if record_trace:
-        trace = jnp.moveaxis(trace, 0, 1)  # (B, iters)
-    else:
-        trace = jnp.full((B, iters), jnp.nan, dtype=dp0.dtype)
     return DescentResult(dp=dp, cost=cost, n_accept=n_acc, cost_trace=trace)

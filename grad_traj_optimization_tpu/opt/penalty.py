@@ -51,7 +51,7 @@ from jax import lax as _lax
 
 
 def _einsum(subscripts, *operands):
-    """einsum pinned to f32 accumulation (TPU MXU defaults to bf16)."""
+    """einsum pinned to full f32 precision (no TF32/bf16 passes)."""
     return jnp.einsum(subscripts, *operands, precision=_lax.Precision.HIGHEST)
 
 from grad_traj_optimization_tpu.config import OptimizerConfig
@@ -65,14 +65,17 @@ class Field(NamedTuple):
     ``flat`` may concatenate many scenarios' grids; ``base`` selects this
     scenario's slab.  Keeping ``flat`` unbatched under vmap turns the
     batch's trilinear lookups into one large flat gather (see
-    fields.sdf.trilinear_flat).
+    fields.sdf.trilinear_flat).  ``offset``/``full`` carry the exact-crop
+    frame of a cropped grid (solver.crop_scenarios); None for a full
+    grid.
     """
 
     flat: Any          # (total_voxels,)
     base: Any          # () int32 offset into flat
     origin: Any        # (3,)
     resolution: Any    # ()
-    grid: Any = None   # (nx, ny, nz) view for the MXU lookup mode
+    offset: Any = None  # (3,) int32 cell offset of the cropped window
+    full: Any = None    # (3,) int32 extents of the uncropped map
 
 
 def make_field(dist_grid, origin, resolution):
@@ -83,7 +86,6 @@ def make_field(dist_grid, origin, resolution):
             base=jnp.zeros((), jnp.int32),
             origin=jnp.asarray(origin),
             resolution=jnp.asarray(resolution),
-            grid=dist_grid,
         ),
         dist_grid.shape,
     )
@@ -193,25 +195,10 @@ def _smooth(dp, ctx: PenaltyCtx):
 
 def _collision_terms(pos, vel, field: Field, grid_shape,
                      cfg: OptimizerConfig):
-    import jax
-
-    mode = cfg.lookup_mode
-    if mode == "auto":
-        mode = (
-            "mxu"
-            if jax.default_backend() == "tpu" and field.grid is not None
-            else "elem"
-        )
-    if mode == "mxu" and field.grid is not None:
-        d, g = sdf.trilinear_mxu(
-            field.grid, field.origin, field.resolution, pos,
-            precision=cfg.lookup_precision,
-        )
-    else:
-        d, g = sdf.trilinear_flat(
-            field.flat, field.base, grid_shape, field.origin,
-            field.resolution, pos, mode=mode if mode != "mxu" else "auto",
-        )
+    d, g = sdf.trilinear_flat(
+        field.flat, field.base, grid_shape, field.origin,
+        field.resolution, pos, offset=field.offset, full=field.full,
+    )
     cd = cfg.alpha * jnp.exp(-(d - cfg.d0) / cfg.r)
     gd = -cd / cfg.r
     vn = jnp.linalg.norm(vel, axis=-1) + cfg.vel_eps
@@ -324,145 +311,3 @@ def bounds(waypoints, num_dp: int, cfg: OptimizerConfig, dtype=jnp.float32,
         axis=1,
     ).reshape(-1)
     return center - half[None, :], center + half[None, :]
-
-
-# ---------------------------------------------------------------------------
-# Batch-first evaluation (for the fused Pallas lookup)
-# ---------------------------------------------------------------------------
-
-
-def build_ctx_batch(T_b, Df_b, cfg: OptimizerConfig) -> PenaltyCtx:
-    """PenaltyCtx with a leading batch axis on every leaf."""
-    return jax.vmap(lambda T, Df: build_ctx(T, Df, cfg))(T_b, Df_b)
-
-
-def _lookup_batched(pos_flat, grids, origin, resolution, cfg,
-                    interpret: bool = False, gp=None):
-    """(B, S, 3) positions -> (d (B, S), g (B, S, 3)).
-
-    ``gp`` is the pre-arranged grid layout from
-    ops.trilinear_pallas.prep_grids (hoisted out of the iteration loop).
-    """
-    from grad_traj_optimization_tpu.ops import trilinear_pallas as tp
-
-    mode = cfg.lookup_mode
-    B, S = pos_flat.shape[:2]
-    # "auto" takes the fused kernel on real TPUs (measured 1.53x over the
-    # mxu contraction at B=1024, bitwise-identical solutions); "fused"
-    # forces it (interpret mode off-TPU).  Mosaic has no HIGH dot
-    # precision, so reduced-precision runs stay on the mxu path.
-    use_fused = (
-        tp.supports(grids.shape[1:], S)
-        and cfg.lookup_precision == "highest"
-        and (
-            mode == "fused"
-            or (mode == "auto" and jax.default_backend() == "tpu")
-        )
-    )
-    if use_fused:
-        interp = interpret or jax.default_backend() != "tpu"
-        if gp is None:
-            gp = tp.prep_grids(grids)
-        return tp.trilinear_fused_prepped(
-            gp, grids.shape[1:], origin, resolution, pos_flat,
-            interpret=interp,
-        )
-    # "fused" that fails the gate (precision/shape) degrades to mxu on
-    # TPU — NEVER to the scalar-gather path (~35 ns/element)
-    if jax.default_backend() == "tpu" and mode in ("auto", "mxu", "fused"):
-        return jax.vmap(
-            lambda g, o, r, p: sdf.trilinear_mxu(
-                g, o, r, p, precision=cfg.lookup_precision
-            )
-        )(grids, origin, resolution, pos_flat)
-    flat = grids.reshape(-1)
-    nvox = grids.shape[1] * grids.shape[2] * grids.shape[3]
-    bases = jnp.arange(B, dtype=jnp.int32) * nvox
-    return jax.vmap(
-        lambda b, o, r, p: sdf.trilinear_flat(
-            flat, b, grids.shape[1:], o, r, p
-        )
-    )(bases, origin, resolution, pos_flat)
-
-
-def cost_and_grad_batch(dp, bctx: PenaltyCtx, grids, origin, resolution,
-                        cfg: OptimizerConfig, step: int,
-                        interpret: bool = False, gp=None):
-    """Batch-first total cost + gradient.
-
-    Args:
-      dp: (B, 3, num_dp); bctx: batched PenaltyCtx; grids (B, nx, ny, nz).
-    Returns:
-      cost (B,), grad (B, 3, num_dp).
-    """
-    ws = 0.0 if step == 1 else cfg.w_smooth
-    wc = cfg.w_collision
-
-    d_full = jnp.concatenate([bctx.Df, dp], axis=2)  # (B, 3, ndim)
-    cost_s = _einsum("nxa,nac,nxc->n", d_full, bctx.dep.R, d_full)
-    grad_s = 2.0 * _einsum(
-        "nxf,nfd->nxd", bctx.Df, bctx.dep.Rfp
-    ) + 2.0 * _einsum("nxp,npd->nxd", dp, bctx.dep.Rpp)
-
-    if abs(wc) < 1e-4:
-        cost = ws * cost_s + cfg.cost_eps
-        grad = ws * grad_s
-        if cfg.gradient_mode == "reference":
-            grad = grad + cfg.grad_eps
-        return cost, grad
-
-    # coefficients + sample states, batch-first
-    from grad_traj_optimization_tpu.core import poly as _poly
-
-    B = dp.shape[0]
-    m = bctx.T.shape[1]
-    idx = jnp.asarray(qp.opt_dmap(m))
-    D = d_full[:, :, idx].reshape(B, 3, m, 6)
-    ainv = jax.vmap(_poly.segment_ainv)(bctx.T)  # (B, m, 6, 6)
-    coeff = _einsum("nsjc,nxsc->nsxj", ainv, D)  # (B, m, 3, 6)
-    pos = _einsum("nmkj,nmxj->nmkx", bctx.Tmat, coeff)
-    vel = _einsum("nmkj,nmxj->nmkx", bctx.TVmat, coeff)
-
-    K = cfg.n_samples
-    S = m * K
-    d_s, g_s = _lookup_batched(
-        pos.reshape(B, S, 3), grids, origin, resolution, cfg, interpret,
-        gp=gp,
-    )
-    d_s = d_s.reshape(B, m, K)
-    g_s = g_s.reshape(B, m, K, 3)
-
-    cd = cfg.alpha * jnp.exp(-(d_s - cfg.d0) / cfg.r)
-    gd = -cd / cfg.r
-    vn = jnp.linalg.norm(vel, axis=-1) + cfg.vel_eps
-
-    cost_c = _einsum("nmk,nm->n", cd * vn, bctx.dt)
-    if cfg.gradient_mode == "reference":
-        w_dist = gd * cd * vn
-    else:
-        w_dist = gd * vn
-    w1 = w_dist[..., None] * g_s
-    w2 = (cd / vn)[..., None] * vel
-    grad_c = _einsum(
-        "nmkx,nmkd,nm->nxd", w1, bctx.TL, bctx.dt
-    ) + _einsum("nmkx,nmkd,nm->nxd", w2, bctx.TVL, bctx.dt)
-
-    cost = ws * cost_s + wc * cost_c + cfg.cost_eps
-    grad = ws * grad_s + wc * grad_c
-    if step == 2 and (cfg.alpha_v != 0.0 or cfg.alpha_a != 0.0):
-        acc = (
-            _einsum("nmkj,nmxj->nmkx", bctx.TAmat, coeff)
-            if cfg.alpha_a != 0.0 else None
-        )
-        cost_v, cost_a, w_tvl, w_tal = _va_weights(vel, acc, vn, cfg)
-        cost = cost + _einsum("nmk,nm->n", cost_v + cost_a, bctx.dt)
-        grad = grad + _einsum(
-            "nmkx,nmkd,nm->nxd", w_tvl, bctx.TVL, bctx.dt
-        )
-        if cfg.alpha_a != 0.0:
-            grad = grad + _einsum(
-                "nmkx,nmkd,nm->nxd", w_tal, bctx.TAL, bctx.dt
-            )
-    if cfg.gradient_mode == "reference":
-        grad = grad + cfg.grad_eps
-    return cost, grad

@@ -1,6 +1,6 @@
 """Spatially-sharded Euclidean distance transform.
 
-For pod-scale grids (BASELINE.md stress config: 512^3 = 537 MB f32) the
+For large grids (BASELINE.md stress config: 512^3 = 537 MB f32) the
 voxel grid is sharded along x over the mesh's "space" axis.  The three
 separable EDT passes then split into:
 
@@ -11,7 +11,7 @@ separable EDT passes then split into:
   at step s each device folds the slab originating from device
   (me + s) mod p into its running minimum, then passes the slab on.
   p - 1 hops, each overlapping a local partial-min — the EDT analogue of
-  ring attention, riding ICI neighbor links instead of all-to-all.
+  ring attention: point-to-point hops instead of an all-to-all.
 
 This mirrors the role the sequential x-sweep plays in the reference
 (sdf_map.cpp:348-364) while keeping every hop a nearest-neighbor

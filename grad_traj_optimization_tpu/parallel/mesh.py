@@ -76,15 +76,13 @@ import functools
 
 
 @functools.lru_cache(maxsize=None)
-def _sharded_runner(mesh: Mesh, cfg, steps, record_trace, fused,
-                    interpret=False):
+def _sharded_runner(mesh: Mesh, cfg, steps, record_trace):
     """Cached shard_map-wrapped solve.
 
     The wrapper MUST be built once per (mesh, cfg, steps, ...) and
     reused: a fresh closure per call defeats jax's compilation cache
     (function identity is part of the key), recompiling the whole
-    program every invocation — measured 59 solves/s instead of 1,400
-    at B=1024 on a 1-device TPU mesh before this cache existed.
+    program every invocation.
     """
     from grad_traj_optimization_tpu import solver as solve_mod
 
@@ -97,11 +95,6 @@ def _sharded_runner(mesh: Mesh, cfg, steps, record_trace, fused,
         check_vma=False,
     )
     def run(scn):
-        if fused:
-            return solve_mod.solve_batch_fused(
-                scn, cfg=cfg, steps=steps, record_trace=record_trace,
-                interpret=interpret,
-            )
         return solve_mod.solve_batch(
             scn, cfg=cfg, steps=steps, record_trace=record_trace
         )
@@ -118,16 +111,15 @@ def sharded_solve(scenarios, mesh: Mesh, cfg=None, steps=(2,),
     sharding.
 
     Implemented with ``jax.shard_map`` rather than jit auto-partitioning:
-    each device runs the full per-shard ``solve_batch`` — including the
-    Pallas fast paths (whole-descent kernel / fused lookup), which XLA
-    cannot partition across devices as custom calls.
+    each device runs the full per-shard ``solve_batch`` program on its
+    own scenarios, with no communication.
     """
     from grad_traj_optimization_tpu.config import OptimizerConfig
 
     if cfg is None:
         cfg = OptimizerConfig()
     scenarios = shard_scenarios(scenarios, mesh)
-    run = _sharded_runner(mesh, cfg, tuple(steps), record_trace, False)
+    run = _sharded_runner(mesh, cfg, tuple(steps), record_trace)
     return run(scenarios)
 
 
@@ -135,7 +127,7 @@ def convergence_stats(solution):
     """Fleet-wide convergence reductions (device-count independent).
 
     jnp reductions over a sharded Solution lower to psum/all-reduce
-    collectives over the mesh — the TPU analogue of the reference's
+    collectives over the mesh — the batched analogue of the reference's
     printed per-solve counters (grad_traj_optimizer.cpp:233-239).
     """
     import jax.numpy as jnp
@@ -146,26 +138,6 @@ def convergence_stats(solution):
         "mean_cost": jnp.mean(solution.cost),
         "mean_accept": jnp.mean(solution.n_accept.astype(jnp.float32)),
     }
-
-
-def sharded_solve_fused(scenarios, mesh: Mesh, cfg=None, steps=(2,),
-                        record_trace=False, interpret=False):
-    """Data-parallel batch-first solve with the fused Pallas lookup.
-
-    Wraps solver.solve_batch_fused in jax.shard_map over the "data" axis:
-    each device runs the fused kernel on its scenario shard (a Pallas
-    call cannot span devices, so explicit shard_map replaces the
-    jit-auto-partitioning used by :func:`sharded_solve`).
-    """
-    from grad_traj_optimization_tpu.config import OptimizerConfig
-
-    if cfg is None:
-        cfg = OptimizerConfig(lookup_mode="fused")
-    scenarios = shard_scenarios(scenarios, mesh)
-    run = _sharded_runner(
-        mesh, cfg, tuple(steps), record_trace, True, interpret
-    )
-    return run(scenarios)
 
 
 @functools.lru_cache(maxsize=None)
@@ -214,8 +186,8 @@ def sharded_search(dists, origins, resolution, starts, goals,
 
     The front-end analogue of :func:`sharded_solve` (the search is
     embarrassingly parallel over scenarios): each device runs the full
-    batched beam program — including its zero-gather box lookups and
-    sort-payload dedup — on its scenario shard.  A leading-dim-1
+    batched beam program — including its sort-payload dedup — on its
+    scenario shard.  A leading-dim-1
     ``dists`` is treated as a SHARED map and replicated to every
     device (each shard then takes search_batch's own shared fast
     path).  ``obstacle_pred``/``start_times`` (the dynamic space-time

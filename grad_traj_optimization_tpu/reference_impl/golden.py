@@ -6,7 +6,7 @@ grad_traj_optimizer.cpp:135-148), so trajectory parity is defined against
 this deterministic float64 reimplementation of the C++ *math*: the same
 EDT, the same dense QP construction (including the literal 6m x 6m
 ``A.inverse()``), the same cost/gradient formulas with all their quirks.
-The TPU path is tested against this oracle at the 1e-3 positional
+The JAX path is tested against this oracle at the 1e-3 positional
 tolerance demanded by BASELINE.md.
 
 Everything here is written for clarity over speed (plain loops), exactly
@@ -406,7 +406,7 @@ class GoldenOptimizer:
         return lb, ub
 
     def optimize(self, steps=(2,)):
-        """Deterministic float64 run of the same projected descent the TPU
+        """Deterministic float64 run of the same projected descent the JAX
         path uses (opt/descent.py), for end-to-end parity checks.
 
         seed_mode='dual' races both seeds exactly as solver._combine_dual:

@@ -1,6 +1,6 @@
 """Batched grid path search by wavefront value iteration.
 
-TPU-native replacement for the reference's 26-connected grid A*
+Data-parallel replacement for the reference's 26-connected grid A*
 (a_star.{h,cpp}): instead of a sequential priority queue, the cost-to-go
 field is computed by **parallel Bellman relaxation** — each sweep relaxes
 every voxel against its 26 neighbors simultaneously (one shifted-add +

@@ -1,11 +1,12 @@
-"""Kinodynamic trajectory search, TPU-shaped.
+"""Kinodynamic trajectory search, shaped for a batched accelerator.
 
 Rebuild of the reference ``KinodynamicAstar`` (kinodynamic_astar.{h,cpp})
 and the kinodynamic parts of ``HybridAStarPathFinder``.  The math ports
 one-to-one (closed-form state transit, Pontryagin heuristic via exact
 cubic/quartic root formulas, one-shot cubic connection); the *container*
 does not: a sequential priority queue with hash dedup is the wrong shape
-for a TPU, so the search is a **fixed-iteration batched beam search**:
+for a data-parallel device, so the search is a **fixed-iteration batched
+beam search**:
 
 * every iteration expands the whole beam by the full acceleration-
   primitive set simultaneously (the reference's 5^3 inputs x durations,
@@ -83,8 +84,8 @@ def _fast_cbrt(v):
     bit-trick seed + two division-based Halley steps (cubic
     convergence), max rel err 2.4e-7 over |v| in [1e-20, 1e20].
 
-    ``jnp.cbrt`` lowers through pow -> exp/log chains on the TPU VPU;
-    this replaces them with integer ops + two divides.  Zero maps to
+    ``jnp.cbrt`` lowers through pow -> exp/log chains; this replaces
+    them with integer ops + two divides.  Zero maps to
     zero; NaN propagates.
     """
     a = jnp.abs(v).astype(jnp.float32)
@@ -291,151 +292,11 @@ def shot_feasible(state1, state2, t_d, dist_grid, origin, resolution,
     ks = jnp.arange(1, n_check + 1, dtype=coef.dtype) / n_check
     ts = td[..., None] * ks  # (..., n_check)
     tp = ts[..., None] ** jnp.arange(4, dtype=coef.dtype)
-    pos = jnp.einsum("...kj,...xj->...kx", tp, coef)
+    pos = jnp.einsum(
+        "...kj,...xj->...kx", tp, coef, precision=jax.lax.Precision.HIGHEST
+    )
     d = sdf.distance_at(dist_grid, origin, resolution, pos)
     return jnp.all(d > margin, axis=-1)
-
-
-# ---------------------------------------------------------------------------
-# Local-box nearest-cell lookup (the TPU fast path for the beam's
-# collision sweeps)
-# ---------------------------------------------------------------------------
-
-
-def default_box_cells(max_vel: float, max_acc: float, max_tau: float,
-                      resolution: float) -> int:
-    """Box half-width (cells) covering one primitive's reach from a
-    feasible parent: |v| <= max_vel per axis, so displacement over tau
-    is bounded by max_vel * tau + 0.5 * max_acc * tau^2."""
-    disp = max_vel * max_tau + 0.5 * max_acc * max_tau**2
-    return int(np.ceil(disp / resolution)) + 1
-
-
-_PACK_BITS = 23  # safe-bits per f32 plane (24-bit mantissa, 1 guard)
-
-
-def _pack_safe_planes(dist_grid, margin):
-    """Bit-pack the boolean clearance field along z into f32 planes.
-
-    ``planes[x, y, p] = sum_z (dist[x, y, z] > margin) * 2^(z - 23p)``
-    for z in plane p's 23-bit band — exact integers < 2^24.  Packing
-    happens ONCE per search; every primitive-sweep lookup then reads
-    one packed column value and extracts its bit in float arithmetic.
-
-    Returns (nx, ny, n_pl) float32.
-    """
-    nz = dist_grid.shape[2]
-    n_pl = -(-nz // _PACK_BITS)
-    zsel = np.zeros((nz, n_pl), np.float32)
-    for z in range(nz):
-        zsel[z, z // _PACK_BITS] = 2.0 ** (z % _PACK_BITS)
-    safe = (dist_grid > margin).astype(jnp.float32)
-    return jnp.einsum(
-        "xyz,zp->xyp", safe, jnp.asarray(zsel),
-        precision=jax.lax.Precision.HIGHEST,
-    )
-
-
-def _window_safe(planes, grid_shape, origin, res, parent_pos, pos,
-                 half: int):
-    """Boolean clearance lookup for samples near their beam parents —
-    ZERO gathers (round-4 VERDICT item 1).
-
-    Returns exactly ``sdf.distance_at(dist, ...) > margin`` (with the
-    out-of-map -1 sentinel reading as unsafe) for any sample within
-    ``half`` cells of its parent in x/y.  Per-element gathers lower to
-    ~35 ns scalar ops on TPU (22 searches/s at B=1024), and even
-    per-parent `dynamic_slice` boxes lower as element gathers (chip-
-    profiled: 79% of the batched beam's runtime).  Everything here is
-    matmuls and masked reduces instead:
-
-    * the clearance booleans are bit-packed along z into f32 planes
-      (``_pack_safe_planes``, once per search);
-    * each parent's (2*half+1)-wide x/y WINDOW of the packed planes is
-      extracted with two chained range-selection matmuls (exact 0/1
-      operands);
-    * each sample then reads its packed column with a tiny one-hot MXU
-      dot over the window (K = 2*half+1, the only small-dim padding
-      left) + a VPU (y, plane)-select, and extracts bit (z mod 23) in
-      float arithmetic (exact for integers < 2^24).
-
-    Samples farther than ``half`` window cells from their parent (only
-    lanes whose parent already carries g = big: infeasible-velocity
-    parents kept by top-k when fewer than `beam` candidates were
-    feasible) read a clamped in-window bit — garbage, but their
-    candidates carry g = big and can never be selected or become the
-    best leaf.
-
-    Args:
-      planes: (nx, ny, n_pl) packed planes.
-      grid_shape: static (nx, ny, nz) of the underlying field.
-      parent_pos: (beam, 3) parent positions (window centers).
-      pos: (beam, ..., 3) sample positions.
-      half: static window half-width in cells (x and y).
-    Returns:
-      (beam, ...) bool safety.
-    """
-    nx, ny, nz = grid_shape
-    n_pl = planes.shape[2]
-    bx = min(2 * half + 1, nx)
-    by = min(2 * half + 1, ny)
-    f32 = jnp.float32
-    hi = jax.lax.Precision.HIGHEST
-
-    ctr = jnp.floor((parent_pos[:, :2] - origin[:2]) / res).astype(
-        jnp.int32
-    )
-    start = jnp.clip(
-        ctr - jnp.asarray([(bx - 1) // 2, (by - 1) // 2]),
-        0, jnp.asarray([nx - bx, ny - by]),
-    )  # (beam, 2)
-
-    # range-selection matmuls: W[b, i, x] = 1{x == start_b + i}
-    Wx = (
-        jnp.arange(nx, dtype=jnp.int32)[None, None, :]
-        == (start[:, 0, None, None]
-            + jnp.arange(bx, dtype=jnp.int32)[None, :, None])
-    ).astype(f32)
-    Wy = (
-        jnp.arange(ny, dtype=jnp.int32)[None, None, :]
-        == (start[:, 1, None, None]
-            + jnp.arange(by, dtype=jnp.int32)[None, :, None])
-    ).astype(f32)
-    slabx = jnp.einsum(
-        "bix,xyp->biyp", Wx, planes, precision=hi
-    )  # (beam, bx, ny, n_pl)
-    slab = jnp.einsum(
-        "bjy,biyp->bijp", Wy, slabx, precision=hi
-    ).reshape(-1, bx, by * n_pl)  # (beam, bx, by*n_pl)
-
-    ok = sdf.in_map(pos, origin, res, grid_shape)
-    idx = sdf.pos_to_index(pos, origin, res)
-    idx = jnp.clip(
-        idx, 0, jnp.asarray([nx - 1, ny - 1, nz - 1])
-    )  # distance_at's clamped semantics
-    beam = parent_pos.shape[0]
-    lead = pos.shape[1:-1]
-    idx = idx.reshape(beam, -1, 3)
-    relx = jnp.clip(idx[..., 0] - start[:, 0:1], 0, bx - 1)
-    rely = jnp.clip(idx[..., 1] - start[:, 1:2], 0, by - 1)
-    zpl = idx[..., 2] // _PACK_BITS
-    zbit = idx[..., 2] % _PACK_BITS
-
-    wx = (relx[..., None] == jnp.arange(bx, dtype=jnp.int32)).astype(f32)
-    ty = jnp.einsum(
-        "bsx,bxq->bsq", wx, slab, precision=hi
-    )  # (beam, S, by*n_pl)
-    myq = (
-        (rely * n_pl + zpl)[..., None]
-        == jnp.arange(by * n_pl, dtype=jnp.int32)
-    ).astype(f32)
-    # slab layout: reshape merged (by, n_pl) with y-major -> slot
-    # y * n_pl + p
-    v = jnp.sum(ty * myq, axis=-1)  # packed column value
-    u = jnp.floor(v * 2.0 ** (-zbit.astype(f32)))
-    bit = u - 2.0 * jnp.floor(0.5 * u)
-    safe = (bit > 0.5).reshape((beam,) + lead)
-    return safe & ok
 
 
 # ---------------------------------------------------------------------------
@@ -482,33 +343,17 @@ def search(
     n_dur: int = 2,
     check_num: int = 5,
     max_knots: int = 32,
-    lookup: str = "auto",
-    shot_topk: int | None = None,
-    box_cells: int = 0,
     dedup: str = "exact512",
     heu: str = "exact",
 ) -> KinoResult:
     """Beam kinodynamic search (see :func:`_search_impl`).
 
-    ``lookup``: how the collision sweeps read the distance field.
-    "gather" = per-element flat gathers (exact, fine on CPU);
-    "box" = local-box one-hot contractions (bitwise the same sweep
-    values, the TPU fast path — per-element gathers lower to ~35 ns
-    scalar ops there); "auto" picks by backend.  In box mode the
-    one-shot feasibility sweep is restricted to the ``shot_topk``
-    most promising beam slots per iteration (default 8; the shot
-    spans to the goal and cannot ride a local box) — pass
-    ``shot_topk=beam`` for gather-identical termination tracking.
-    ``box_cells``: static box half-width override (required when
-    ``resolution`` is traced, e.g. under an outer vmap).
-
     ``dedup``: beam-selection voxel dedup formulation.  The default
-    "exact512" runs the round-5 SORT-PAYLOAD form (variadic stable
-    lax.sort carrying f-values + source indices, static slices — the
-    chip-measured 703 searches/s path) with a 512 pre-cut; "exact" =
-    the provable beam^2 pre-cut (~6% slower); "lex<K>" = the legacy
-    lexsort+gather formulation (bitwise-identical selections, ~6.5x
-    slower — kept for the A/B record and the CI equivalence test);
+    "exact512" runs the SORT-PAYLOAD form (variadic stable lax.sort
+    carrying f-values + source indices, static slices) with a 512
+    pre-cut; "exact" = the provable beam^2 pre-cut; "lex<K>" = the
+    legacy lexsort+gather formulation (bitwise-identical selections —
+    kept for the CI equivalence test);
     "approx<K>" (lax.approx_max_k pre-cut) and "pp<K>" (per-parent
     top-K) are measured non-winners; "parent" skips the global stage
     (fastest, reach regression on crowded corridors).
@@ -517,23 +362,13 @@ def search(
     (polynomial cos(arccos/3) + bit-trick cbrt, ~1e-6 root movement,
     gate-verified; measured +0.6% — opt-in).
     """
-    if lookup == "auto":
-        lookup = "box" if jax.default_backend() == "tpu" else "gather"
-    if lookup == "box" and box_cells == 0:
-        box_cells = default_box_cells(
-            max_vel, max_acc, max_tau, float(resolution)
-        )
-    if shot_topk is None:
-        shot_topk = min(8, beam) if lookup == "box" else 0
     return _search_impl(
         dist_grid, origin, resolution, start_state, goal_state,
         obstacle_pred, start_time,
         max_acc=max_acc, max_vel=max_vel, max_tau=max_tau,
         w_time=w_time, lambda_heu=lambda_heu, margin=margin,
         max_iters=max_iters, beam=beam, n_acc=n_acc, n_dur=n_dur,
-        check_num=check_num, max_knots=max_knots, lookup=lookup,
-        shot_topk=shot_topk, box_cells=box_cells, dedup=dedup,
-        heu=heu,
+        check_num=check_num, max_knots=max_knots, dedup=dedup, heu=heu,
     )
 
 
@@ -542,8 +377,7 @@ def search(
     static_argnames=(
         "max_acc", "max_vel", "max_tau", "w_time", "lambda_heu",
         "margin", "max_iters", "beam", "n_acc", "n_dur", "check_num",
-        "max_knots", "lookup", "shot_topk", "box_cells", "ablate",
-        "dedup", "heu",
+        "max_knots", "dedup", "heu",
     ),
 )
 def _search_impl(
@@ -566,10 +400,6 @@ def _search_impl(
     n_dur: int = 2,
     check_num: int = 5,
     max_knots: int = 32,
-    lookup: str = "gather",
-    shot_topk: int = 0,
-    box_cells: int = 0,
-    ablate: str = "",
     dedup: str = "exact512",
     heu: str = "exact",
 ) -> KinoResult:
@@ -624,43 +454,15 @@ def _search_impl(
         may shoot from anywhere, so the sweep is densified (32 samples:
         <= ~0.3 m spacing at horizon-scale shots — matches the primitive
         sweep's density) or thin walls slip between samples.
-
-        With ``shot_topk`` set (the TPU box-lookup path), only the
-        top-k slots by optimistic total g + h are swept — shots span
-        to the goal, so their lookups stay per-element gathers, and
-        sweeping all `beam` slots every iteration would put the gather
-        cost right back on the critical path.  Slots outside the top-k
-        read as infeasible this iteration (they are tracked again
-        every later iteration as their totals improve).
         """
         h_b, t_sh = estimate_heuristic(states_b, goal_state, w_time,
                                        max_vel)
         t_hold = jnp.maximum(t_sh, 1e-2)
-        if "noshot" in ablate:  # profiling only
-            feas_b = jnp.ones(states_b.shape[0], bool)
-        elif 0 < shot_topk < states_b.shape[0]:
-            score = g_b + jnp.where(jnp.isfinite(h_b), h_b, 0.0)
-            _, sel = jax.lax.top_k(-score, shot_topk)
-            feas_sel = shot_feasible(
-                states_b[sel], goal_state, t_hold[sel], dist_grid,
-                origin, res, margin, n_check=32,
-            )
-            feas_b = jnp.zeros(
-                states_b.shape[0], bool
-            ).at[sel].set(feas_sel)
-        else:
-            feas_b = shot_feasible(
-                states_b, goal_state, t_hold, dist_grid,
-                origin, res, margin, n_check=32,
-            )
+        feas_b = shot_feasible(
+            states_b, goal_state, t_hold, dist_grid,
+            origin, res, margin, n_check=32,
+        )
         return g_b + jnp.where(feas_b, h_b, 0.5 * big), t_sh
-
-    # hoisted box-mode safety planes: the primitive sweeps consume only
-    # the boolean (d > margin), bit-packed along z once per search
-    # (_pack_safe_planes) and read via windowed matmuls (_window_safe)
-    safe_planes = (
-        _pack_safe_planes(dist_grid, margin) if lookup == "box" else None
-    )
 
     def body(it, carry):
         states, g, tcur, hp, hu, ht, best = carry
@@ -701,19 +503,8 @@ def _search_impl(
             prim[None, :, None, None, :],
             (taus[None, None, :, None] * ks[None, None, None, :]),
         )[..., :3]
-        if "nolookup" in ablate:  # profiling only: everything clear
-            safe_sweep = jnp.ones(sweep.shape[:-1], bool)
-        elif lookup == "box":
-            # the sweep consumes only the BOOLEAN (d > margin), so the
-            # box path looks up a bit-packed safety mask — decisions
-            # bitwise-equal to the gather path (see _window_safe)
-            safe_sweep = _window_safe(
-                safe_planes, dist_grid.shape, origin, res,
-                states[:, :3], sweep, box_cells,
-            )
-        else:
-            d_st = sdf.distance_at(dist_grid, origin, res, sweep)
-            safe_sweep = d_st > margin
+        d_st = sdf.distance_at(dist_grid, origin, res, sweep)
+        safe_sweep = d_st > margin
         if obstacle_pred is not None:
             from grad_traj_optimization_tpu.fields import (
                 dynamic as _dyn,
@@ -732,19 +523,16 @@ def _search_impl(
         ok = in_map & vel_ok & no_col
         gc = jnp.where(ok, gc, big)
 
-        if "noheu" in ablate:  # profiling only
-            h = jnp.zeros_like(gc)
-        else:
-            # the hot call (beam * P * n_dur states per iteration):
-            # heu="fast" swaps the quartic's transcendental chains for
-            # the polynomial/bit-trick solvers (~1e-6 relative root
-            # movement, gated behaviorally on the 100-case oracle
-            # suite).  shot_total's per-beam call stays exact — it is
-            # 250x smaller and its t feeds the OUTPUT segment times.
-            h, _ = estimate_heuristic(
-                cand, goal_state, w_time, max_vel,
-                fast=(heu == "fast"),
-            )
+        # the hot call (beam * P * n_dur states per iteration):
+        # heu="fast" swaps the quartic's transcendental chains for the
+        # polynomial/bit-trick solvers (~1e-6 relative root movement,
+        # gated behaviorally on the 100-case oracle suite).
+        # shot_total's per-beam call stays exact — it is 250x smaller
+        # and its t feeds the OUTPUT segment times.
+        h, _ = estimate_heuristic(
+            cand, goal_state, w_time, max_vel,
+            fast=(heu == "fast"),
+        )
         f = gc + lambda_heu * jnp.where(jnp.isfinite(h), h, 0.0)
         f = jnp.where(ok, f, big)
 
@@ -757,164 +545,153 @@ def _search_impl(
         # of the greediest lineage, which then dies collectively at
         # the first trap.
         #
-        # EXACT two-stage formulation without the 16k-key lexsort a
-        # chip profile showed costing 0.35 s per 64-scenario batch:
+        # EXACT two-stage formulation without a global 16k-key lexsort:
         #  1. within-parent pairwise dedup caps per-voxel duplication
         #     at `beam` (one survivor per parent per voxel);
         #  2. therefore the global best-per-voxel winners of at least
         #     `beam` distinct voxels lie inside the top beam^2
         #     candidates by f, and a pairwise dedup + top-k there
         #     reproduces the full global dedup's beam EXACTLY.
-        # All stages are vectorized compares/reduces (VPU), no sorts.
-        flat_f = f.reshape(N)
-        if "nodedup" in ablate:  # profiling only: plain top-k
-            _, idx = jax.lax.top_k(-flat_f, beam)
+        keys = vox_key(cand[..., :3]).reshape(beam, P * nd)
+        f_pp = f.reshape(beam, P * nd)
+        if dedup.startswith("lex"):
+            # pre-round-5 stage-1 formulation, kept as the test
+            # reference: jnp.lexsort returns a PERMUTATION, so
+            # every consumer pays a take_along_axis GATHER over the
+            # (beam, P*nd) rows — 2 x 16k gathered elements per
+            # iteration.
+            order1 = jnp.lexsort((f_pp, keys), axis=-1)
+            ks1 = jnp.take_along_axis(keys, order1, axis=-1)
+            f1s = jnp.take_along_axis(f_pp, order1, axis=-1)
+            src1 = order1
         else:
-            keys = vox_key(cand[..., :3]).reshape(beam, P * nd)
-            f_pp = f.reshape(beam, P * nd)
-            if dedup.startswith("lex"):
-                # pre-round-5 stage-1 formulation, kept for the chip
-                # A/B record: jnp.lexsort returns a PERMUTATION, so
-                # every consumer pays a take_along_axis GATHER over the
-                # (beam, P*nd) rows — 2 x 16k gathered elements per
-                # iteration, chip-attributed as ~85% of the round-4
-                # dedup cost (~7 ms of 15.5 ms per search at B=1024).
-                order1 = jnp.lexsort((f_pp, keys), axis=-1)
-                ks1 = jnp.take_along_axis(keys, order1, axis=-1)
-                f1s = jnp.take_along_axis(f_pp, order1, axis=-1)
-                src1 = order1
-            else:
-                # stage 1 (round 5): ONE variadic lax.sort carries the
-                # f values and source positions THROUGH the sorting
-                # network as payload operands — same (voxel, f) stable
-                # order as the lexsort, zero post-sort gathers.
-                iota1 = jnp.broadcast_to(
-                    jnp.arange(P * nd, dtype=jnp.int32), (beam, P * nd)
-                )
-                ks1, f1s, src1 = jax.lax.sort(
-                    (keys, f_pp, iota1), dimension=-1, num_keys=2,
-                    is_stable=True,
-                )
-            # per-parent best-per-voxel: caps per-voxel duplication at
-            # `beam` (one survivor per parent per voxel)
-            first1 = jnp.concatenate(
-                [
-                    jnp.ones((beam, 1), bool),
-                    ks1[:, 1:] != ks1[:, :-1],
-                ],
-                axis=1,
+            # stage 1 (round 5): ONE variadic lax.sort carries the
+            # f values and source positions THROUGH the sorting
+            # network as payload operands — same (voxel, f) stable
+            # order as the lexsort, zero post-sort gathers.
+            iota1 = jnp.broadcast_to(
+                jnp.arange(P * nd, dtype=jnp.int32), (beam, P * nd)
             )
-            f_s1 = jnp.where(first1, f1s, big)
-            gidx1 = (
-                src1
-                + jnp.arange(beam, dtype=src1.dtype)[:, None] * (P * nd)
+            ks1, f1s, src1 = jax.lax.sort(
+                (keys, f_pp, iota1), dimension=-1, num_keys=2,
+                is_stable=True,
             )
+        # per-parent best-per-voxel: caps per-voxel duplication at
+        # `beam` (one survivor per parent per voxel)
+        first1 = jnp.concatenate(
+            [
+                jnp.ones((beam, 1), bool),
+                ks1[:, 1:] != ks1[:, :-1],
+            ],
+            axis=1,
+        )
+        f_s1 = jnp.where(first1, f1s, big)
+        gidx1 = (
+            src1
+            + jnp.arange(beam, dtype=src1.dtype)[:, None] * (P * nd)
+        )
 
-            def dedup_epilogue(fK, hK, oidx):
-                """Shared pre-cut epilogue for the lex/approx/pp arms:
-                lexsort by (voxel, f) -> first-occurrence dedup mask ->
-                top-k -> source indices.  (The default exact<K> path
-                uses the gather-free sort-payload formulation instead.)
-                """
-                order2 = jnp.lexsort((fK, hK))
-                hs2 = hK[order2]
-                first2 = jnp.concatenate(
-                    [jnp.ones(1, bool), hs2[1:] != hs2[:-1]]
-                )
-                f_dd = jnp.where(first2, fK[order2], big)
-                _, sel2 = jax.lax.top_k(-f_dd, beam)
-                return oidx[order2[sel2]]
+        def dedup_epilogue(fK, hK, oidx):
+            """Shared pre-cut epilogue for the lex/approx/pp arms:
+            lexsort by (voxel, f) -> first-occurrence dedup mask ->
+            top-k -> source indices.  (The default exact<K> path
+            uses the gather-free sort-payload formulation instead.)
+            """
+            order2 = jnp.lexsort((fK, hK))
+            hs2 = hK[order2]
+            first2 = jnp.concatenate(
+                [jnp.ones(1, bool), hs2[1:] != hs2[:-1]]
+            )
+            f_dd = jnp.where(first2, fK[order2], big)
+            _, sel2 = jax.lax.top_k(-f_dd, beam)
+            return oidx[order2[sel2]]
 
-            if dedup.startswith("exact"):
-                # stage 2 (round-5 sort-payload form): with duplication
-                # <= beam, every voxel-winner that can reach the final
-                # beam lies in the top beam^2 by f ("exact<K>" caps the
-                # pre-cut at K: heuristic below beam^2, exact above).
-                # All three selections are variadic stable sorts +
-                # STATIC slices — top_k on TPU lowers as a full sort
-                # anyway, so sorting WITH payloads costs the same and
-                # deletes every post-selection gather.  Order matches
-                # the lex formulation bitwise: top_k ties break by
-                # ascending index == stable ascending sort by f.
-                k_pre = min(N, int(dedup[5:]) if dedup[5:] else
-                            beam * beam)
-                fK, hK, oidx = jax.lax.sort(
-                    (f_s1.reshape(N), ks1.reshape(N), gidx1.reshape(N)),
-                    num_keys=1, is_stable=True,
-                )
-                fK, hK, oidx = fK[:k_pre], hK[:k_pre], oidx[:k_pre]
-                hs2, fs2, o2 = jax.lax.sort(
-                    (hK, fK, oidx), num_keys=2, is_stable=True
-                )
-                first2 = jnp.concatenate(
-                    [jnp.ones(1, bool), hs2[1:] != hs2[:-1]]
-                )
-                f_dd = jnp.where(first2, fs2, big)
-                _, idx_s = jax.lax.sort(
-                    (f_dd, o2), num_keys=1, is_stable=True
-                )
-                idx = idx_s[:beam]
-            elif dedup.startswith("lex"):
-                # pre-round-5 stage 2: top_k + index gathers
-                k_pre = min(N, int(dedup[3:]) if dedup[3:] else
-                            beam * beam)
-                negf, pre = jax.lax.top_k(-f_s1.reshape(N), k_pre)
-                fK = -negf
-                oidx = gidx1.reshape(N)[pre]
-                hK = vox_key(cand.reshape(N, 6)[oidx, :3])
-                idx = dedup_epilogue(fK, hK, oidx)
-            elif dedup.startswith("approx"):
-                # "approx<K>" (round 5): exact512's global pre-cut,
-                # but via lax.approx_max_k — the TPU PartialReduce
-                # top-k (block-wise partial reduction, no full-sort
-                # lowering; jax.lax.approx_max_k docs / TPU custom
-                # call).  The K-cut is already heuristic below beam^2
-                # (exact512's own compromise), so a recall-0.95
-                # selection only perturbs marginal candidates; gated
-                # behaviorally like every dedup arm.  Everything after
-                # the cut (512-lexsort dedup + exact top-k) unchanged.
-                k_pre = min(N, int(dedup[6:]) if dedup[6:] else 512)
-                negf, pre = jax.lax.approx_max_k(
-                    -f_s1.reshape(N), k_pre
-                )
-                fK = -negf
-                oidx = gidx1.reshape(N)[pre]
-                hK = vox_key(cand.reshape(N, 6)[oidx, :3])
-                idx = dedup_epilogue(fK, hK, oidx)
-            elif dedup.startswith("pp"):
-                # "pp<K>" (round 5): PER-PARENT top-K pre-cut.  The
-                # global top_k(N) above lowers as a FULL 16k sort on
-                # TPU (~45% of the round-4 beam's runtime); a per-ROW
-                # top-k over the (beam, P*nd) stage-1 survivors is a
-                # small batched last-axis sort instead.  Guarantee:
-                # every parent's K best distinct voxels reach the
-                # global stage (a final-beam winner provably lies in
-                # its parent's top-`beam`, so "pp64" is EXACT; smaller
-                # K STARVES the beam while few parents are feasible —
-                # iteration 0 has ONE finite-g parent, so pp8 fills
-                # only 8 distinct slots vs exact512's 64 (measured
-                # 4.8x worse seed g on a fixture case).  Opt-in for
-                # k >= beam only; prefer "approx<K>" for throughput.
-                # The key/index lookups ride take_along_axis over the
-                # already-sorted per-parent rows — no big gathers.
-                k_pp = min(P * nd, int(dedup[2:]) if dedup[2:] else 8)
-                negv, ppos = jax.lax.top_k(-f_s1, k_pp)  # rows
-                fK = (-negv).reshape(-1)
-                hK = jnp.take_along_axis(ks1, ppos, axis=-1).reshape(-1)
-                oidx = jnp.take_along_axis(
-                    gidx1, ppos, axis=-1
-                ).reshape(-1)
-                idx = dedup_epilogue(fK, hK, oidx)
-            else:
-                # "parent": stop after the within-parent dedup.
-                # Chip-measured 1.4x the "exact" batch rate (68/s vs
-                # 49/s at B=1024) BUT a real reach regression on hard
-                # maps (736/1024 vs 945/1024 on the bench scenarios):
-                # cross-parent same-voxel duplicates eat beam slots
-                # exactly when parents crowd a corridor.  Kept as an
-                # opt-in throughput lever only.
-                _, pos2 = jax.lax.top_k(-f_s1.reshape(N), beam)
-                idx = gidx1.reshape(N)[pos2]
+        if dedup.startswith("exact"):
+            # stage 2 (round-5 sort-payload form): with duplication
+            # <= beam, every voxel-winner that can reach the final
+            # beam lies in the top beam^2 by f ("exact<K>" caps the
+            # pre-cut at K: heuristic below beam^2, exact above).
+            # All three selections are variadic stable sorts +
+            # STATIC slices, so sorting WITH payloads deletes every
+            # post-selection gather.  Order matches
+            # the lex formulation bitwise: top_k ties break by
+            # ascending index == stable ascending sort by f.
+            k_pre = min(N, int(dedup[5:]) if dedup[5:] else
+                        beam * beam)
+            fK, hK, oidx = jax.lax.sort(
+                (f_s1.reshape(N), ks1.reshape(N), gidx1.reshape(N)),
+                num_keys=1, is_stable=True,
+            )
+            fK, hK, oidx = fK[:k_pre], hK[:k_pre], oidx[:k_pre]
+            hs2, fs2, o2 = jax.lax.sort(
+                (hK, fK, oidx), num_keys=2, is_stable=True
+            )
+            first2 = jnp.concatenate(
+                [jnp.ones(1, bool), hs2[1:] != hs2[:-1]]
+            )
+            f_dd = jnp.where(first2, fs2, big)
+            _, idx_s = jax.lax.sort(
+                (f_dd, o2), num_keys=1, is_stable=True
+            )
+            idx = idx_s[:beam]
+        elif dedup.startswith("lex"):
+            # pre-round-5 stage 2: top_k + index gathers
+            k_pre = min(N, int(dedup[3:]) if dedup[3:] else
+                        beam * beam)
+            negf, pre = jax.lax.top_k(-f_s1.reshape(N), k_pre)
+            fK = -negf
+            oidx = gidx1.reshape(N)[pre]
+            hK = vox_key(cand.reshape(N, 6)[oidx, :3])
+            idx = dedup_epilogue(fK, hK, oidx)
+        elif dedup.startswith("approx"):
+            # "approx<K>" (round 5): exact512's global pre-cut,
+            # but via lax.approx_max_k (an approximate top-k with
+            # recall 0.95).  The K-cut is already heuristic below beam^2
+            # (exact512's own compromise), so a recall-0.95
+            # selection only perturbs marginal candidates; gated
+            # behaviorally like every dedup arm.  Everything after
+            # the cut (512-lexsort dedup + exact top-k) unchanged.
+            k_pre = min(N, int(dedup[6:]) if dedup[6:] else 512)
+            negf, pre = jax.lax.approx_max_k(
+                -f_s1.reshape(N), k_pre
+            )
+            fK = -negf
+            oidx = gidx1.reshape(N)[pre]
+            hK = vox_key(cand.reshape(N, 6)[oidx, :3])
+            idx = dedup_epilogue(fK, hK, oidx)
+        elif dedup.startswith("pp"):
+            # "pp<K>" (round 5): PER-PARENT top-K pre-cut: a
+            # per-ROW top-k over the (beam, P*nd) stage-1 survivors
+            # is a small batched last-axis sort instead of the
+            # global top_k(N).  Guarantee:
+            # every parent's K best distinct voxels reach the
+            # global stage (a final-beam winner provably lies in
+            # its parent's top-`beam`, so "pp64" is EXACT; smaller
+            # K STARVES the beam while few parents are feasible —
+            # iteration 0 has ONE finite-g parent, so pp8 fills
+            # only 8 distinct slots vs exact512's 64 (measured
+            # 4.8x worse seed g on a fixture case).  Opt-in for
+            # k >= beam only; prefer "approx<K>" for throughput.
+            # The key/index lookups ride take_along_axis over the
+            # already-sorted per-parent rows — no big gathers.
+            k_pp = min(P * nd, int(dedup[2:]) if dedup[2:] else 8)
+            negv, ppos = jax.lax.top_k(-f_s1, k_pp)  # rows
+            fK = (-negv).reshape(-1)
+            hK = jnp.take_along_axis(ks1, ppos, axis=-1).reshape(-1)
+            oidx = jnp.take_along_axis(
+                gidx1, ppos, axis=-1
+            ).reshape(-1)
+            idx = dedup_epilogue(fK, hK, oidx)
+        else:
+            # "parent": stop after the within-parent dedup.
+            # Faster than "exact" BUT a real reach regression on
+            # hard maps (736/1024 vs 945/1024 on the bench
+            # scenarios):
+            # cross-parent same-voxel duplicates eat beam slots
+            # exactly when parents crowd a corridor.  Kept as an
+            # opt-in throughput lever only.
+            _, pos2 = jax.lax.top_k(-f_s1.reshape(N), beam)
+            idx = gidx1.reshape(N)[pos2]
         new_states = cand.reshape(N, 6)[idx]
         new_g = gc.reshape(N)[idx]
         parent = idx // (P * nd)
@@ -1032,7 +809,7 @@ def search_adaptive(
     threads (recorded: 96/100 vs the exact front-ends at beam=64,
     BEAM_VS_EXACT.md); before falling back to the host search, retry
     with a ``widen``x beam and ``deepen``x iterations — the batched
-    expansion makes a wider beam nearly free on TPU, and each retry
+    expansion makes a wider beam cheap, and each retry
     shape compiles once.  Returns (KinoResult, n_retries_used).
     """
     res = search(
@@ -1059,9 +836,6 @@ def search_batch(
     goals,
     obstacle_pred=None,
     start_times=None,
-    lookup: str = "auto",
-    shot_topk: int | None = None,
-    box_cells: int = 0,
     **kw,
 ) -> KinoResult:
     """Batched beam search: one jitted program over B scenarios.
@@ -1069,17 +843,14 @@ def search_batch(
     The front-end counterpart of ``solver.solve_batch`` (the
     reference's compare2 loop runs one search per case,
     compare2.cpp:168-177; here the whole suite is one vmapped
-    program).  Shares :func:`search`'s config via ``kw``; uses the
-    box lookup by default on TPU (per-element gathers made the
-    vmapped beam ~22 searches/s at B=1024 — the box path is the fix).
+    program).  Shares :func:`search`'s config via ``kw``.
 
     ``obstacle_pred`` (round 5): a predictor.ObjPrediction enables the
     reference's DYNAMIC mode at batch scale — every primitive sweep
     sample is additionally tested against the predicted moving boxes
     at its absolute node time (compare22's evaluateCoarseEDT oracle,
-    kinodynamic_astar.cpp:199-213 / edt_environment.cpp:62-73; the
-    box-distance math is dense clamp/norm arithmetic, so it rides the
-    zero-gather TPU path unchanged).  Leaves may be per-scenario
+    kinodynamic_astar.cpp:199-213 / edt_environment.cpp:62-73).  Leaves
+    may be per-scenario
     batched ((B, n_obj, ...)) or shared ((n_obj, ...)).
     ``start_times``: (B,) absolute search start times (the dynamic
     oracle is time-parametric); default zeros.
@@ -1091,23 +862,13 @@ def search_batch(
     Returns:
       KinoResult with a leading batch axis on every field.
     """
-    if lookup == "auto":
-        lookup = "box" if jax.default_backend() == "tpu" else "gather"
-    if lookup == "box" and box_cells == 0:
-        box_cells = default_box_cells(
-            kw.get("max_vel", 3.0), kw.get("max_acc", 2.0),
-            kw.get("max_tau", 0.5), float(resolution),
-        )
-    if shot_topk is None:
-        beam = kw.get("beam", 64)
-        shot_topk = min(8, beam) if lookup == "box" else 0
     dists = jnp.asarray(dists)
     origins = jnp.asarray(origins, jnp.float32)
     starts = jnp.asarray(starts, jnp.float32)
     goals = jnp.asarray(goals, jnp.float32)
     # a (1, ...) dist is a SHARED map: vmap it with in_axes=None so the
-    # grid (and its packed safety planes) is closed over once instead
-    # of materializing B full copies in HBM
+    # grid is closed over once instead of materializing B full copies
+    # in device memory
     shared = bool(dists.shape[0] == 1 and starts.shape[0] > 1)
     pred_axis = None
     if obstacle_pred is not None:
@@ -1119,28 +880,23 @@ def search_batch(
 
     return _search_batch_impl(
         dists, origins, jnp.asarray(resolution, jnp.float32), starts,
-        goals, obstacle_pred, start_times,
-        lookup, shot_topk, box_cells, tuple(sorted(kw.items())),
+        goals, obstacle_pred, start_times, tuple(sorted(kw.items())),
         shared, pred_axis,
     )
 
 
 @functools.partial(
     jax.jit,
-    static_argnames=("lookup", "shot_topk", "box_cells", "skw",
-                     "shared", "pred_axis"),
+    static_argnames=("skw", "shared", "pred_axis"),
 )
 def _search_batch_impl(dists, origins, resolution, starts, goals,
-                       pred, start_times,
-                       lookup, shot_topk, box_cells, skw,
+                       pred, start_times, skw,
                        shared=False, pred_axis=None):
     kw = dict(skw)
 
     def one(d, o, s, g, p, t0):
         return _search_impl(
-            d, o, resolution, s, g, p, t0,
-            lookup=lookup, shot_topk=shot_topk, box_cells=box_cells,
-            **kw,
+            d, o, resolution, s, g, p, t0, **kw,
         )
 
     in_axes = (None if shared else 0, 0, 0, 0, pred_axis, 0)

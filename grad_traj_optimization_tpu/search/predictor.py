@@ -134,8 +134,9 @@ def fit_poly(history_pos, history_t, scale, lam: float = 1.0,
     w = jnp.ones_like(t) if valid is None else valid.astype(t.dtype)
 
     tp = t[..., None] ** jnp.arange(6, dtype=t.dtype)  # (n_obj, H, 6)
-    A = 2.0 * jnp.einsum("nhj,nhk,nh->njk", tp, tp, w)
-    b = 2.0 * jnp.einsum("nhx,nhj,nh->njx", pos, tp, w)
+    hi = jax.lax.Precision.HIGHEST  # no TF32 passes on the GPU
+    A = 2.0 * jnp.einsum("nhj,nhk,nh->njk", tp, tp, w, precision=hi)
+    b = 2.0 * jnp.einsum("nhx,nhj,nh->njx", pos, tp, w, precision=hi)
 
     t1 = t[:, 0]
     t2 = t[:, -1]
@@ -181,4 +182,6 @@ def predict_position(pred: ObjPrediction, time):
     """
     t = jnp.asarray(time)
     tp = t[..., None] ** jnp.arange(6, dtype=pred.poly.dtype)  # (..., 6)
-    return jnp.einsum("...j,njx->...nx", tp, pred.poly)
+    return jnp.einsum(
+        "...j,njx->...nx", tp, pred.poly, precision=jax.lax.Precision.HIGHEST
+    )

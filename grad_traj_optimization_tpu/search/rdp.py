@@ -9,8 +9,8 @@ cell centers) into sparse waypoints for the QP seeding.
 Two implementations:
 
 * :func:`simplify` — host-side NumPy recursion (search post-processing is
-  tiny and irregular; this is the pragmatic default between the TPU search
-  and the TPU refinement stages).
+  tiny and irregular; this is the pragmatic default between the device
+  search and the device refinement stages).
 * :func:`simplify_masked` — fixed-depth masked JAX version for use inside
   jitted pipelines: returns a keep-mask over the input points.
 """

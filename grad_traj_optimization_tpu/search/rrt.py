@@ -25,7 +25,7 @@ The reference's receding-horizon machinery is rebuilt in
 - ``result()``           — tracePath/getPath (:806-887)
 
 Deliberate deviations (SURVEY.md section 2 row 11): sampling-based search
-is a poor fit for the TPU hot path, so this runs on host NumPy as a
+is a poor fit for the accelerator hot path, so this runs on host NumPy as a
 *seeding utility*; clearance radii come from the EDT grid instead of a
 PCL k-d tree over raw points (the EDT is already built for the
 optimizer); orphan reconnection walks the flat node arrays instead of a

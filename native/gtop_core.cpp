@@ -1,6 +1,6 @@
-// gtop_core: native host-side engine for the TPU trajectory framework.
+// gtop_core: native host-side engine for the JAX trajectory framework.
 //
-// Role in the architecture: the TPU path (JAX/XLA) owns batched solving;
+// Role in the architecture: the device path (JAX/XLA) owns batched solving;
 // this library owns the host side — low-latency single solves on CPU,
 // oracle-grade double-precision verification, and fast fixture/EDT
 // generation for data loading.  It re-implements the reference pipeline
@@ -19,6 +19,8 @@
 //    opt/descent.py (replacing the reference's NLopt back-end).
 //
 // C ABI only; Python binds via ctypes (grad_traj_optimization_tpu/native.py).
+
+#include <sched.h>
 
 #include <algorithm>
 #include <cmath>
@@ -67,6 +69,10 @@ void dt1d(const double* f, int n, double* d, int* v, double* z) {
 
 void parallel_for(int n, const std::function<void(int, int)>& fn) {
   int nt = std::max(1u, std::thread::hardware_concurrency());
+  // one thread per CPU this process may run on, not per CPU of the host
+  cpu_set_t allowed;
+  if (sched_getaffinity(0, sizeof(allowed), &allowed) == 0)
+    nt = std::max(1, std::min(nt, CPU_COUNT(&allowed)));
   nt = std::min(nt, n > 0 ? n : 1);
   std::vector<std::thread> threads;
   int chunk = (n + nt - 1) / nt;
@@ -792,7 +798,7 @@ void gtop_solve_batch(const float* dist, int n_grids, int nx, int ny,
 // (kinodynamic_astar.cpp:17-315): priority-queue A* over (position,
 // velocity) states with acceleration primitives (5^3 inputs, z-halved),
 // voxel-hash dedup, Pontryagin heuristic via exact quartic roots, and a
-// cubic one-shot to the goal.  The TPU path uses a batched beam variant
+// cubic one-shot to the goal.  The device path uses a batched beam variant
 // (search/kinodynamic.py); this exact version serves host-side seeding
 // and parity checks of the beam's output quality.
 

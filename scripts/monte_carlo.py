@@ -1,7 +1,7 @@
-"""Pod-scale Monte-Carlo driver: N random scenarios in compiled chunks.
+"""Monte-Carlo driver: N random scenarios in compiled chunks.
 
-BASELINE.md stress config: "100k-scenario Monte-Carlo, 512^3 SDF,
-sharded across a multi-host v5p slice".  This driver realizes the
+BASELINE.md stress config: a 100k-scenario Monte-Carlo.  This driver
+realizes the
 scenario-count axis on whatever devices are visible: scenarios are
 generated, EDT-transformed and solved in fixed-size chunks (one jit
 compile serves every chunk), aggregate statistics accumulate on the

@@ -1,9 +1,9 @@
-"""Pod-scale EDT stress benchmark (BASELINE.md config 5).
+"""Large-grid EDT stress benchmark (BASELINE.md config 5).
 
 Builds a large random occupancy grid (default 512^3 = 537 MB f32) and
 times the exact EDT:
 
-* single-device (Pallas min-plus passes on TPU), and
+* single-device (the dense min-plus passes), and
 * sharded over all visible devices along x with ring ppermute
   (parallel/edt_sharded), when more than one device is present.
 

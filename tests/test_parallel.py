@@ -76,24 +76,6 @@ def test_graft_entry_dryrun():
     ge.dryrun_multichip(8)
 
 
-def test_sharded_fused_solve_matches_unsharded():
-    cfg = OptimizerConfig(
-        iters_step1=3, iters_step2=5, lookup_mode="fused"
-    )
-    scns = _tiny_batch(16)
-    m = pmesh.make_mesh(n_data=8, n_space=1)
-    sols_sh = pmesh.sharded_solve_fused(
-        scns, m, cfg=cfg, steps=(2,), interpret=True
-    )
-    sols_loc = solve_mod.solve_batch_fused(
-        scns, cfg=cfg, steps=(2,), record_trace=False, interpret=True
-    )
-    np.testing.assert_allclose(
-        np.asarray(sols_sh.coeff), np.asarray(sols_loc.coeff),
-        rtol=1e-4, atol=1e-4,
-    )
-
-
 def test_multiprocess_distributed_solve():
     """True multi-process bring-up: 2 worker processes x 4 virtual CPU
     devices each run jax.distributed + mesh.global_scenarios +
@@ -274,7 +256,7 @@ def test_sharded_search_dynamic_matches_local():
     )
     t0s = np.linspace(0.0, 0.7, B).astype(np.float32)
     m = pmesh.make_mesh()
-    kw = dict(max_iters=10, beam=16, lookup="gather")
+    kw = dict(max_iters=10, beam=16)
     r_sh = pmesh.sharded_search(
         dists, origins, res, starts, goals, m, obstacle_pred=pred_b,
         start_times=t0s, **kw,

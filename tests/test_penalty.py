@@ -190,45 +190,6 @@ def test_exact_va_gradient_matches_autodiff():
     )
 
 
-def test_va_penalty_batch_matches_single():
-    """cost_and_grad_batch with vel/acc on == vmapped single path."""
-    import jax
-
-    gm, gopt, wp, _ = _small_problem()
-    cfg = OptimizerConfig(alpha_v=0.1, alpha_a=0.1, lookup_mode="elem")
-    gopt = golden.GoldenOptimizer(gm, cfg)
-    gopt.setup(wp)
-    ctx, field, shape = _jax_ctx(gopt, wp, cfg)
-
-    rng = np.random.default_rng(5)
-    B = 4
-    dps = jnp.asarray(
-        gopt.Dp0[None] + 0.2 * rng.standard_normal((B,) + gopt.Dp0.shape),
-        jnp.float32,
-    )
-    T_b = jnp.broadcast_to(
-        jnp.asarray(gopt.times, jnp.float32), (B, len(gopt.times))
-    )
-    Df_b = jnp.broadcast_to(jnp.asarray(gopt.Df, jnp.float32), (B, 3, 6))
-    bctx = penalty.build_ctx_batch(T_b, Df_b, cfg)
-    grids = jnp.broadcast_to(
-        jnp.asarray(gm.dist, jnp.float32), (B,) + gm.dist.shape
-    )
-    orgs = jnp.broadcast_to(jnp.asarray(gm.origin, jnp.float32), (B, 3))
-    ress = jnp.full((B,), gm.resolution, jnp.float32)
-    c_b, g_b = penalty.cost_and_grad_batch(
-        dps, bctx, grids, orgs, ress, cfg, step=2
-    )
-    c_s, g_s = jax.vmap(
-        lambda dp: penalty.cost_and_grad(dp, ctx, field, shape, cfg,
-                                         step=2)
-    )(dps)
-    np.testing.assert_allclose(np.asarray(c_b), np.asarray(c_s),
-                               rtol=1e-5)
-    np.testing.assert_allclose(np.asarray(g_b), np.asarray(g_s),
-                               rtol=1e-4, atol=1e-5)
-
-
 def test_bounds_layout():
     gm, gopt, wp, cfg = _small_problem()
     lb_g, ub_g = gopt.bounds()

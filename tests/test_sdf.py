@@ -120,39 +120,6 @@ def test_trilinear_flat_offset():
                                    atol=1e-5)
 
 
-def test_trilinear_row_mode_matches_elem():
-    rng = np.random.default_rng(12)
-    grids = rng.random((2, 9, 8, 6)).astype(np.float32) * 4.0
-    flat = jnp.asarray(grids.reshape(-1))
-    origin = jnp.zeros(3, jnp.float32)
-    res = 0.5
-    q = jnp.asarray(rng.uniform(-0.5, 4.5, size=(200, 3)), jnp.float32)
-    nvox = 9 * 8 * 6
-    for b in range(2):
-        d_r, g_r = sdf.trilinear_flat(
-            flat, b * nvox, (9, 8, 6), origin, res, q, mode="row"
-        )
-        d_e, g_e = sdf.trilinear_flat(
-            flat, b * nvox, (9, 8, 6), origin, res, q, mode="elem"
-        )
-        np.testing.assert_allclose(np.asarray(d_r), np.asarray(d_e),
-                                   atol=1e-6)
-        np.testing.assert_allclose(np.asarray(g_r), np.asarray(g_e),
-                                   atol=1e-5)
-
-
-def test_trilinear_mxu_matches_elem():
-    rng = np.random.default_rng(13)
-    grid = (rng.random((9, 8, 6)).astype(np.float32) * 4.0)
-    origin = jnp.zeros(3, jnp.float32)
-    res = 0.5
-    q = jnp.asarray(rng.uniform(-0.5, 4.5, size=(150, 3)), jnp.float32)
-    d_m, g_m = sdf.trilinear_mxu(jnp.asarray(grid), origin, res, q)
-    d_e, g_e = sdf.distance_and_gradient(jnp.asarray(grid), origin, res, q)
-    np.testing.assert_allclose(np.asarray(d_m), np.asarray(d_e), atol=2e-5)
-    np.testing.assert_allclose(np.asarray(g_m), np.asarray(g_e), atol=2e-4)
-
-
 def test_edt_update_add_exact_vs_full_recompute():
     """Region-limited incremental update (reference setUpdateRange,
     sdf_map.cpp:244-262, sweep bounds :311-364): additions inside the
@@ -162,13 +129,13 @@ def test_edt_update_add_exact_vs_full_recompute():
     res = 0.2
     for _ in range(3):
         occ0 = (rng.random((32, 28, 16)) < 0.012).astype(np.float32)
-        d0 = sdf.edt(jnp.asarray(occ0), res, backend="jnp")
+        d0 = sdf.edt(jnp.asarray(occ0), res)
         lo, hi = (8, 6, 3), (20, 18, 12)
         occ1 = occ0.copy()
         adds = rng.integers(lo, hi, size=(5, 3))
         for a in adds:
             occ1[tuple(a)] = 1.0
-        d_full = np.asarray(sdf.edt(jnp.asarray(occ1), res, backend="jnp"))
+        d_full = np.asarray(sdf.edt(jnp.asarray(occ1), res))
         d_inc = np.asarray(
             sdf.edt_update(d0, jnp.asarray(occ1), res, lo, hi, mode="add")
         )
@@ -192,12 +159,12 @@ def test_edt_update_reset_exact_on_edit_region():
     rng = np.random.default_rng(5)
     res = 0.2
     occ0 = (rng.random((36, 32, 18)) < 0.015).astype(np.float32)
-    d0 = sdf.edt(jnp.asarray(occ0), res, backend="jnp")
+    d0 = sdf.edt(jnp.asarray(occ0), res)
     elo, ehi = (14, 12, 7), (19, 17, 11)
     occ1 = occ0.copy()
     occ1[elo[0]:ehi[0], elo[1]:ehi[1], elo[2]:ehi[2]] = 0.0  # removals
     occ1[16, 14, 9] = 1.0                                    # an add
-    d_full = np.asarray(sdf.edt(jnp.asarray(occ1), res, backend="jnp"))
+    d_full = np.asarray(sdf.edt(jnp.asarray(occ1), res))
     pad = int(np.ceil(float(d_full.max()) / res)) + 2
     blo = tuple(max(0, l - pad) for l in elo)
     bhi = tuple(min(g, h + pad) for h, g in zip(ehi, occ0.shape))

@@ -193,7 +193,7 @@ def test_kino_search_trim_keeps_branch_start():
 
 def test_beam_vs_exact_gate():
     """SURVEY section-7 parity gate for the front-end consolidation:
-    the TPU beam must succeed nearly as often as the exact reference
+    the batched beam must succeed nearly as often as the exact reference
     A* (native host port) and seed final optimized trajectories of
     comparable cost.  Conservative thresholds; the recorded 100-case
     suite (BEAM_VS_EXACT.md, scripts/beam_vs_exact.py) measured
@@ -442,7 +442,7 @@ def test_kino_search_space_time_avoids_moving_box():
 
 
 def test_beam_vs_hybrid_exact_gate():
-    """Second front-end gate (round-3): the TPU beam vs the exact
+    """Second front-end gate (round-3): the batched beam vs the exact
     HYBRID A* (compare2's front-end, native.hybrid_search with
     setParameterAuto params).  Conservative thresholds; the recorded
     100-case suite lives in BEAM_VS_EXACT.md (scripts/beam_vs_exact.py
@@ -477,11 +477,9 @@ def test_beam_vs_hybrid_exact_gate():
         assert stats["jerk_ratio_geomean"] < 0.7
 
 
-def test_box_lookup_bitwise_equals_gather():
-    """The TPU box-lookup path (per-parent dynamic-sliced boxes +
-    exact one-hot contractions) must produce BITWISE the search as the
-    gather path when the shot sweep covers all slots (shot_topk=beam);
-    search_batch lanes must equal per-case searches."""
+def test_search_batch_lanes_equal_single_search():
+    """search_batch (one vmapped program over the batch) returns, lane
+    for lane, bitwise the per-case search."""
     rng = np.random.default_rng(11)
     from grad_traj_optimization_tpu import fixtures
 
@@ -490,20 +488,6 @@ def test_box_lookup_bitwise_equals_gather():
         c = fixtures.random_search_case(rng)
         if c is not None:
             cases.append(c)
-    for dist, origin, res, start, goal in cases:
-        s6 = np.concatenate([start, np.zeros(3)]).astype(np.float32)
-        g6 = np.concatenate([goal, np.zeros(3)]).astype(np.float32)
-        rg = kinodynamic.search(
-            dist, jnp.asarray(origin, jnp.float32), res, s6, g6,
-            lookup="gather",
-        )
-        rb = kinodynamic.search(
-            dist, jnp.asarray(origin, jnp.float32), res, s6, g6,
-            lookup="box", shot_topk=64,
-        )
-        for a, b in zip(rg, rb):
-            assert np.array_equal(np.asarray(a), np.asarray(b))
-
     dists = np.stack([c[0] for c in cases])
     origins = np.stack([c[1] for c in cases])
     starts = np.stack(
@@ -513,12 +497,12 @@ def test_box_lookup_bitwise_equals_gather():
         [np.concatenate([c[4], np.zeros(3)]) for c in cases]
     ).astype(np.float32)
     rbatch = kinodynamic.search_batch(
-        dists, origins, cases[0][2], starts, goals, lookup="gather"
+        dists, origins, cases[0][2], starts, goals
     )
     for i, (dist, origin, res, start, goal) in enumerate(cases):
         r1 = kinodynamic.search(
             dist, jnp.asarray(origin, jnp.float32), res, starts[i],
-            goals[i], lookup="gather",
+            goals[i],
         )
         for a, b in zip(r1, rbatch):
             assert np.array_equal(np.asarray(a), np.asarray(b)[i])
@@ -566,7 +550,7 @@ def test_resample_knots_batch_hermite_exact():
         [np.concatenate([c[4], np.zeros(3)]) for c in cases]
     ).astype(np.float32)
     rb = kinodynamic.search_batch(
-        dists, origins, res, starts, goals, lookup="gather"
+        dists, origins, res, starts, goals
     )
     p6, v6, a6, t6 = kinodynamic.resample_knots_batch(
         rb.pos, rb.vel, rb.acc, rb.times, 6
@@ -604,7 +588,7 @@ def test_search_batch_dynamic_matches_single():
     """Round-5: search_batch(obstacle_pred=...) == per-scenario
     search(obstacle_pred=...) bitwise, for both batched and shared
     prediction leaves (the batched space-time front-end,
-    kinodynamic_astar.cpp:199-213 at TPU scale)."""
+    kinodynamic_astar.cpp:199-213 at batch scale)."""
     rng = np.random.default_rng(21)
     from grad_traj_optimization_tpu import fixtures
 
@@ -640,14 +624,14 @@ def test_search_batch_dynamic_matches_single():
 
     rb = kinodynamic.search_batch(
         dists, origins, res, starts, goals, obstacle_pred=pred_b,
-        start_times=t0s, lookup="gather", max_iters=12, beam=32,
+        start_times=t0s, max_iters=12, beam=32,
     )
     for i in range(3):
         pred_i = jax.tree.map(lambda x: x[i], pred_b)
         r1 = kinodynamic.search(
             dists[i], jnp.asarray(origins[i]), res, starts[i],
             goals[i], obstacle_pred=pred_i, start_time=float(t0s[i]),
-            lookup="gather", max_iters=12, beam=32,
+            max_iters=12, beam=32,
         )
         for a, b in zip(r1, rb):
             assert np.array_equal(np.asarray(a), np.asarray(b)[i])
@@ -656,13 +640,13 @@ def test_search_batch_dynamic_matches_single():
     pred_s = jax.tree.map(lambda x: x[0], pred_b)
     rb_sh = kinodynamic.search_batch(
         dists[:1], origins, res, starts, goals, obstacle_pred=pred_s,
-        start_times=t0s, lookup="gather", max_iters=12, beam=32,
+        start_times=t0s, max_iters=12, beam=32,
     )
     for i in range(3):
         r1 = kinodynamic.search(
             dists[0], jnp.asarray(origins[i]), res, starts[i],
             goals[i], obstacle_pred=pred_s, start_time=float(t0s[i]),
-            lookup="gather", max_iters=12, beam=32,
+            max_iters=12, beam=32,
         )
         for a, b in zip(r1, rb_sh):
             assert np.array_equal(np.asarray(a), np.asarray(b)[i])
@@ -692,11 +676,11 @@ def test_search_batch_adaptive_merges_retries():
 
     # a starved base budget forces failures; the ladder must recover
     base = kinodynamic.search_batch(
-        dists, origins, res, starts, goals, lookup="gather",
+        dists, origins, res, starts, goals,
         beam=2, max_iters=3,
     )
     merged, n_retried, used = kinodynamic.search_batch_adaptive(
-        dists, origins, res, starts, goals, lookup="gather",
+        dists, origins, res, starts, goals,
         beam=2, max_iters=3, retries=2, widen=4.0, deepen=3.0,
     )
     base_reached = np.asarray(base.reached)
@@ -762,8 +746,7 @@ def test_dedup_variants_quality():
       match dedup='exact' (the beam^2 bound) bitwise;
     * 'approx512' (lax.approx_max_k pre-cut) must reach like exact512
       and land close on seed cost (on CPU approx_max_k falls back to
-      an exact selection, so it equals exact512 here; the TPU
-      PartialReduce arm is gated on-chip by the throughput A/B).
+      an exact selection, so it equals exact512 here).
     """
     rng = np.random.default_rng(17)
     from grad_traj_optimization_tpu import fixtures
@@ -912,7 +895,7 @@ def test_plan_batch_end_to_end():
     cfg = OptimizerConfig(iters_step2=15)
     r = pipeline.plan_batch(
         dists, origins, res, starts, goals, cfg=cfg,
-        beam=32, max_iters=12, retries=1, lookup="gather",
+        beam=32, max_iters=12, retries=1,
     )
     assert r.ok.sum() >= 3
     assert np.array_equal(
@@ -920,7 +903,7 @@ def test_plan_batch_end_to_end():
     )
     r2 = pipeline.plan_batch(
         dists, origins, res, starts, goals, cfg=cfg,
-        beam=32, max_iters=12, retries=1, lookup="gather",
+        beam=32, max_iters=12, retries=1,
         long_tau_arm=True,
     )
     assert r2.reached.sum() >= r.reached.sum()
@@ -988,7 +971,7 @@ def test_plan_batch_host_fallback_recovers():
     from grad_traj_optimization_tpu.config import OptimizerConfig
 
     cfg = OptimizerConfig(iters_step2=10)
-    kw = dict(beam=2, max_iters=3, retries=0, lookup="gather",
+    kw = dict(beam=2, max_iters=3, retries=0,
               stretches=(1.0,), cfg=cfg)
     base = pipeline.plan_batch(
         dists, origins, res, starts, goals, **kw
@@ -1071,7 +1054,7 @@ def test_plan_batch_degenerate_cases():
         dist[None], origin[None].astype(np.float32), res,
         np.concatenate([s, np.zeros(3)])[None].astype(np.float32),
         np.concatenate([g, np.zeros(3)])[None].astype(np.float32),
-        cfg=cfg, beam=16, max_iters=10, retries=1, lookup="gather",
+        cfg=cfg, beam=16, max_iters=10, retries=1,
     )
     assert r.reached.shape == (1,)
     # start == goal: must not crash; the shot connects immediately
@@ -1079,6 +1062,6 @@ def test_plan_batch_degenerate_cases():
         dist[None], origin[None].astype(np.float32), res,
         np.concatenate([s, np.zeros(3)])[None].astype(np.float32),
         np.concatenate([s, np.zeros(3)])[None].astype(np.float32),
-        cfg=cfg, beam=16, max_iters=10, retries=0, lookup="gather",
+        cfg=cfg, beam=16, max_iters=10, retries=0,
     )
     assert r2.reached.shape == (1,)

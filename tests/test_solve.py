@@ -40,7 +40,7 @@ def _small_scene():
 
 
 def test_solve_end_to_end_matches_float64_oracle():
-    """TPU-path f32 solve vs the identical float64 NumPy pipeline: final
+    """JAX-path f32 solve vs the identical float64 NumPy pipeline: final
     sampled positions within the 1e-3 m tolerance (BASELINE.md)."""
     map_cfg, obss, wp = _small_scene()
     cfg = _small_cfg()
@@ -157,81 +157,6 @@ def test_kino_seeding_hits_states():
         np.testing.assert_allclose(coeff[s] @ vT, vel[s + 1], atol=5e-3)
 
 
-def test_solve_batch_fused_matches_vmap_path():
-    """Batch-first fused-kernel path (interpret mode on CPU) vs the
-    vmapped reference path: same iterates within f32 noise."""
-    map_cfg, obss, wp = _small_scene()
-    cfg = OptimizerConfig(
-        iters_step1=4, iters_step2=10, lookup_mode="fused"
-    )
-    cfg_ref = OptimizerConfig(iters_step1=4, iters_step2=10)
-    scn = solve_mod.make_scenario(wp, obss, map_cfg)
-    wps = np.stack([wp, wp + np.array([0.15, 0.0, 0.1])], axis=0)
-    batch = solve_mod.Scenario(
-        dist=jnp.stack([scn.dist, scn.dist]),
-        origin=jnp.broadcast_to(scn.origin, (2, 3)),
-        resolution=jnp.broadcast_to(scn.resolution, (2,)),
-        waypoints=jnp.asarray(wps, jnp.float32),
-    )
-    s_ref = solve_mod.solve_batch(
-        batch, cfg=cfg_ref, steps=(1, 2), record_trace=False
-    )
-    s_fused = solve_mod.solve_batch_fused(
-        batch, cfg=cfg, steps=(1, 2), record_trace=False, interpret=True
-    )
-    np.testing.assert_allclose(
-        np.asarray(s_fused.cost), np.asarray(s_ref.cost), rtol=5e-3
-    )
-    from grad_traj_optimization_tpu.core import poly
-
-    for b in range(2):
-        p1, _ = poly.sample_uniform(s_ref.coeff[b], s_ref.T[b], 100)
-        p2, _ = poly.sample_uniform(s_fused.coeff[b], s_fused.T[b], 100)
-        assert float(jnp.max(jnp.abs(p1 - p2))) < 1e-3
-
-
-def test_solve_batch_dispatches_to_fused(monkeypatch):
-    """solve_batch ROUTES lookup_mode='fused' batches to
-    solve_batch_fused (a dispatch-order regression once hid the fused
-    path behind the cropped-scenario guard), and cropped scenarios
-    raise before any fused dispatch."""
-    map_cfg, obss, wp = _small_scene()
-    cfg = OptimizerConfig(
-        iters_step1=4, iters_step2=10, lookup_mode="fused"
-    )
-    scn = solve_mod.make_scenario(wp, obss, map_cfg)
-    batch = solve_mod.Scenario(
-        dist=scn.dist[None],
-        origin=scn.origin[None],
-        resolution=scn.resolution[None],
-        waypoints=jnp.asarray(wp, jnp.float32)[None],
-    )
-    import pytest
-
-    class _Routed(Exception):
-        pass
-
-    def stub(*a, **k):
-        raise _Routed
-
-    monkeypatch.setattr(solve_mod, "solve_batch_fused", stub)
-    with pytest.raises(_Routed):
-        solve_mod.solve_batch(batch, cfg=cfg, steps=(2,))
-
-    # cropped scenarios (grid_offset set) must hit the kernel-path
-    # guard, never the fused dispatch
-    cropped = solve_mod.Scenario(
-        dist=batch.dist[:, :32, :32, :],
-        origin=batch.origin,
-        resolution=batch.resolution,
-        waypoints=batch.waypoints,
-        grid_offset=jnp.zeros((1, 3), jnp.int32),
-        grid_full=jnp.asarray([[40, 40, 16]], jnp.int32),
-    )
-    with pytest.raises(ValueError, match="exact-cropped"):
-        solve_mod.solve_batch(cropped, cfg=cfg, steps=(2,))
-
-
 def test_text_input_fixture_runs_two_step():
     """The legacy text_input scenario (launch/text_input.launch:4-79,
     example_text_input.cpp flow: step 1 then step 2) end to end."""
@@ -264,11 +189,10 @@ def test_text_input_fixture_runs_two_step():
 
 
 def test_crop_scenarios_matches_full_grid():
-    """EXACT cropping (round-3): crop_scenarios keeps the global origin
-    and records the integer cell offset; the whole-descent kernel does
-    its coordinate arithmetic in the global frame, so cropped solves are
-    BITWISE-identical to full-grid solves for in-window trajectories
-    (interpret mode; the chip check lives in scripts/ab_crop_exact.py).
+    """EXACT cropping: crop_scenarios keeps the global origin and
+    records the integer cell offset; the lookup does its coordinate
+    arithmetic in the global frame, so cropped solves are
+    BITWISE-identical to full-grid solves for in-window trajectories.
     """
     map_cfg, pts, valid, wps = fixtures.random_scenarios(
         6, n_waypoints=5, seed=7, max_obstacle_points=1024
@@ -318,15 +242,10 @@ def test_crop_scenarios_matches_full_grid():
     assert np.all(lo <= want_lo + res)
     assert np.all(hi >= want_hi - res)
 
-    # solve both through the whole-descent kernel (interpret mode):
-    # BITWISE-equal iterates — the cropped-away grid columns would have
-    # contributed exact zeros
-    s_full = solve_mod.solve_batch_kernel(
-        batch, cfg=cfg, steps=(2,), interpret=True
-    )
-    s_crop = solve_mod.solve_batch_kernel(
-        cropped, cfg=cfg, steps=(2,), interpret=True
-    )
+    # BITWISE-equal iterates: in-window lookups read the same cells
+    # through the same global-frame arithmetic
+    s_full = solve_mod.solve_batch(batch, cfg=cfg, steps=(2,))
+    s_crop = solve_mod.solve_batch(cropped, cfg=cfg, steps=(2,))
     assert np.all(np.asarray(s_crop.status) == solve_mod.STATUS_OK)
     np.testing.assert_array_equal(
         np.asarray(s_crop.dp), np.asarray(s_full.dp)
@@ -334,17 +253,17 @@ def test_crop_scenarios_matches_full_grid():
     np.testing.assert_array_equal(
         np.asarray(s_crop.cost), np.asarray(s_full.cost)
     )
-
-    # non-kernel paths must refuse cropped scenarios loudly
-    import pytest
-
-    with pytest.raises(ValueError, match="kernel path"):
-        solve_mod.solve_batch(cropped, cfg=cfg, steps=(2,))
+    # the single-scenario path takes the same frame
+    one = solve_mod.Scenario(*jax.tree.map(lambda x: x[0], cropped))
+    s_one = solve_mod.solve(one, cfg=cfg, steps=(2,), record_trace=False)
+    np.testing.assert_array_equal(
+        np.asarray(s_one.dp), np.asarray(s_full.dp[0])
+    )
 
 
 def test_crop_scenarios_shared_map_union_window():
     """Shared-map batches (dist dim 1) crop to ONE union window so the
-    shared-grid kernel path (no per-scenario copies) is preserved."""
+    shared-map path (no per-scenario copies) is preserved."""
     map_cfg, pts, valid, wps = fixtures.random_scenarios(
         4, n_waypoints=5, seed=11, max_obstacle_points=1024
     )
@@ -369,257 +288,11 @@ def test_crop_scenarios_shared_map_union_window():
     assert cropped.dist.shape[0] == 1  # still shared
     off = np.asarray(cropped.grid_offset)
     assert np.all(off == off[0])  # one union window
-    s_full = solve_mod.solve_batch_kernel(
-        batch, cfg=cfg, steps=(2,), interpret=True
-    )
-    s_crop = solve_mod.solve_batch_kernel(
-        cropped, cfg=cfg, steps=(2,), interpret=True
-    )
+    s_full = solve_mod.solve_batch(batch, cfg=cfg, steps=(2,))
+    s_crop = solve_mod.solve_batch(cropped, cfg=cfg, steps=(2,))
     np.testing.assert_array_equal(
         np.asarray(s_crop.dp), np.asarray(s_full.dp)
     )
-
-
-def test_solve_batch_kernel_matches_reference_path():
-    """Whole-descent Pallas kernel (interpret mode on CPU) vs the
-    reference vmap path: identical BB iterate rule, same accept counts,
-    trajectories within the parity budget at moderate iteration counts
-    (long runs diverge chaotically into equal-quality basins — see
-    ops/solve_pallas.py docstring)."""
-    map_cfg, obss, wp = _small_scene()
-    cfg = OptimizerConfig(iters_step1=4, iters_step2=10)
-    scn = solve_mod.make_scenario(wp, obss, map_cfg)
-    wps = np.stack([wp, wp + np.array([0.15, 0.0, 0.1])], axis=0)
-    batch = solve_mod.Scenario(
-        dist=jnp.stack([scn.dist, scn.dist]),
-        origin=jnp.broadcast_to(scn.origin, (2, 3)),
-        resolution=jnp.broadcast_to(scn.resolution, (2,)),
-        waypoints=jnp.asarray(wps, jnp.float32),
-    )
-    s_ref = solve_mod.solve_batch(
-        batch, cfg=cfg, steps=(1, 2), record_trace=True
-    )
-    s_k = solve_mod.solve_batch_kernel(
-        batch, cfg=cfg, steps=(1, 2), interpret=True
-    )
-    np.testing.assert_array_equal(
-        np.asarray(s_k.n_accept), np.asarray(s_ref.n_accept)
-    )
-    # the in-kernel monotone cost envelope matches the JAX path's
-    np.testing.assert_allclose(
-        np.asarray(s_k.cost_trace), np.asarray(s_ref.cost_trace),
-        rtol=5e-3,
-    )
-    np.testing.assert_allclose(
-        np.asarray(s_k.cost), np.asarray(s_ref.cost), rtol=5e-3
-    )
-    assert np.all(np.asarray(s_k.status) == solve_mod.STATUS_OK)
-    for b in range(2):
-        p1, _ = poly.sample_uniform(s_ref.coeff[b], s_ref.T[b], 100)
-        p2, _ = poly.sample_uniform(s_k.coeff[b], s_k.T[b], 100)
-        assert float(jnp.max(jnp.abs(p1 - p2))) < 1e-3
-
-
-def test_solve_batch_kernel_exact_gradient_mode():
-    """The kernel's exact-gradient static branch (w_dist without the
-    reference's extra cd factor) matches the vmap path's exact mode."""
-    map_cfg, obss, wp = _small_scene()
-    cfg = OptimizerConfig(
-        iters_step1=3, iters_step2=8, gradient_mode="exact"
-    )
-    scn = solve_mod.make_scenario(wp, obss, map_cfg)
-    batch = solve_mod.Scenario(
-        dist=scn.dist[None],
-        origin=scn.origin[None],
-        resolution=scn.resolution[None],
-        waypoints=jnp.asarray(wp, jnp.float32)[None],
-    )
-    s_ref = solve_mod.solve_batch(
-        batch, cfg=cfg, steps=(1, 2), record_trace=False
-    )
-    s_k = solve_mod.solve_batch_kernel(
-        batch, cfg=cfg, steps=(1, 2), interpret=True
-    )
-    np.testing.assert_array_equal(
-        np.asarray(s_k.n_accept), np.asarray(s_ref.n_accept)
-    )
-    p1, _ = poly.sample_uniform(s_ref.coeff[0], s_ref.T[0], 100)
-    p2, _ = poly.sample_uniform(s_k.coeff[0], s_k.T[0], 100)
-    assert float(jnp.max(jnp.abs(p1 - p2))) < 1e-3
-
-
-def test_solve_batch_kernel_va_penalties():
-    """The kernel's velocity/acceleration-penalty branch (aacc chain +
-    three-block merged gradient dot) matches the vmap path with the same
-    alpha_v/alpha_a scales — and the penalties actually bind (costs
-    differ from the alphas-off run)."""
-    map_cfg, obss, wp = _small_scene()
-    cfg = OptimizerConfig(
-        iters_step1=3, iters_step2=10, alpha_v=0.1, v0=1.0,
-        alpha_a=0.1, a0=1.5,
-    )
-    scn = solve_mod.make_scenario(wp, obss, map_cfg)
-    wps = np.stack([wp, wp + np.array([0.15, 0.0, 0.1])], axis=0)
-    batch = solve_mod.Scenario(
-        dist=jnp.stack([scn.dist, scn.dist]),
-        origin=jnp.broadcast_to(scn.origin, (2, 3)),
-        resolution=jnp.broadcast_to(scn.resolution, (2,)),
-        waypoints=jnp.asarray(wps, jnp.float32),
-    )
-    s_ref = solve_mod.solve_batch(
-        batch, cfg=cfg, steps=(1, 2), record_trace=True
-    )
-    s_k = solve_mod.solve_batch_kernel(
-        batch, cfg=cfg, steps=(1, 2), interpret=True
-    )
-    np.testing.assert_array_equal(
-        np.asarray(s_k.n_accept), np.asarray(s_ref.n_accept)
-    )
-    np.testing.assert_allclose(
-        np.asarray(s_k.cost_trace), np.asarray(s_ref.cost_trace),
-        rtol=5e-3,
-    )
-    np.testing.assert_allclose(
-        np.asarray(s_k.cost), np.asarray(s_ref.cost), rtol=5e-3
-    )
-    for b in range(2):
-        p1, _ = poly.sample_uniform(s_ref.coeff[b], s_ref.T[b], 100)
-        p2, _ = poly.sample_uniform(s_k.coeff[b], s_k.T[b], 100)
-        assert float(jnp.max(jnp.abs(p1 - p2))) < 1e-3
-    # velocity-only variant exercises the 2-block w_tvl fold
-    cfg_v = OptimizerConfig(iters_step1=3, iters_step2=10, alpha_v=0.1,
-                            v0=1.0)
-    s_ref_v = solve_mod.solve_batch(
-        batch, cfg=cfg_v, steps=(1, 2), record_trace=False
-    )
-    s_k_v = solve_mod.solve_batch_kernel(
-        batch, cfg=cfg_v, steps=(1, 2), interpret=True
-    )
-    np.testing.assert_array_equal(
-        np.asarray(s_k_v.n_accept), np.asarray(s_ref_v.n_accept)
-    )
-    np.testing.assert_allclose(
-        np.asarray(s_k_v.cost), np.asarray(s_ref_v.cost), rtol=5e-3
-    )
-    # the penalties bind: alphas-off kernel run lands at different costs
-    cfg_off = OptimizerConfig(iters_step1=3, iters_step2=10)
-    s_off = solve_mod.solve_batch_kernel(
-        batch, cfg=cfg_off, steps=(1, 2), interpret=True
-    )
-    assert not np.allclose(
-        np.asarray(s_off.cost), np.asarray(s_k.cost), rtol=1e-4
-    )
-
-
-def test_solve_batch_kernel_shared_map():
-    """Shared-map batches (dist leading dim 1): every kernel grid
-    instance indexes the ONE prepped grid block; outputs must equal the
-    broadcast-copies run exactly."""
-    map_cfg, obss, wp = _small_scene()
-    cfg = OptimizerConfig(iters_step1=3, iters_step2=10)
-    scn = solve_mod.make_scenario(wp, obss, map_cfg)
-    wps = np.stack(
-        [wp, wp + np.array([0.15, 0.0, 0.1]), wp + np.array([-0.1, 0.05, 0.0])],
-        axis=0,
-    )
-    B = 3
-    shared = solve_mod.Scenario(
-        dist=scn.dist[None],  # leading dim 1
-        origin=jnp.broadcast_to(scn.origin, (B, 3)),
-        resolution=jnp.broadcast_to(scn.resolution, (B,)),
-        waypoints=jnp.asarray(wps, jnp.float32),
-    )
-    copies = solve_mod.Scenario(
-        dist=jnp.broadcast_to(scn.dist, (B,) + scn.dist.shape),
-        origin=shared.origin,
-        resolution=shared.resolution,
-        waypoints=shared.waypoints,
-    )
-    s_sh = solve_mod.solve_batch_kernel(shared, cfg=cfg, steps=(1, 2),
-                                        interpret=True)
-    s_cp = solve_mod.solve_batch_kernel(copies, cfg=cfg, steps=(1, 2),
-                                        interpret=True)
-    np.testing.assert_array_equal(np.asarray(s_sh.cost),
-                                  np.asarray(s_cp.cost))
-    np.testing.assert_array_equal(np.asarray(s_sh.dp),
-                                  np.asarray(s_cp.dp))
-    np.testing.assert_array_equal(np.asarray(s_sh.n_accept),
-                                  np.asarray(s_cp.n_accept))
-
-
-def test_solve_batch_kernel_many_waypoints():
-    """The kernel's padded sample-row count is derived per call
-    (sp_for), so m=10 (300 samples — beyond the old fixed SP=184 cap)
-    dispatches through the whole-descent kernel and matches the vmap
-    path."""
-    from grad_traj_optimization_tpu.ops import solve_pallas as sk
-
-    map_cfg = MapConfig(
-        origin=(-10.0, -10.0, 0.0), resolution=0.25,
-        map_size=(20.0, 20.0, 5.0),
-    )
-    rng = np.random.default_rng(0)
-    obss = np.array(
-        [(x, y, z)
-         for cx, cy in rng.uniform(-6, 6, (6, 2))
-         for x in np.arange(cx - 0.5, cx + 0.5, 0.25)
-         for y in np.arange(cy - 0.5, cy + 0.5, 0.25)
-         for z in np.arange(0.05, 5.0, 0.25)]
-    )
-    y = np.linspace(-7, 7, 11)
-    wp = np.stack(
-        [rng.uniform(-1.5, 1.5, 11), y, rng.uniform(1.5, 3, 11)], -1
-    )
-    cfg = OptimizerConfig(iters_step2=10)
-    assert sk.supports(map_cfg.grid_shape, 300, 27, cfg)
-    scn = solve_mod.make_scenario(wp, obss, map_cfg)
-    batch = solve_mod.Scenario(*jax.tree.map(lambda a: a[None], scn))
-    s_ref = solve_mod.solve_batch(batch, cfg=cfg, steps=(2,),
-                                  record_trace=False)
-    s_k = solve_mod.solve_batch_kernel(batch, cfg=cfg, steps=(2,),
-                                       interpret=True)
-    np.testing.assert_array_equal(np.asarray(s_k.n_accept),
-                                  np.asarray(s_ref.n_accept))
-    p1, _ = poly.sample_uniform(s_ref.coeff[0], s_ref.T[0], 100)
-    p2, _ = poly.sample_uniform(s_k.coeff[0], s_k.T[0], 100)
-    assert float(jnp.max(jnp.abs(p1 - p2))) < 1e-3
-
-
-def test_solve_batch_kernel_multitile_grid():
-    """Grids over 128 cells pad to lane-tile multiples (npx/npy = 256):
-    the kernel must match the vmap path on a 160x160x12 map."""
-    from grad_traj_optimization_tpu.ops import solve_pallas as sk
-
-    map_cfg = MapConfig(
-        origin=(-20.0, -20.0, 0.0), resolution=0.25,
-        map_size=(40.0, 40.0, 3.0),
-    )
-    assert map_cfg.grid_shape == (160, 160, 12)
-    rng = np.random.default_rng(4)
-    obss = np.array(
-        [(x, y, z)
-         for cx, cy in rng.uniform(-12, 12, (5, 2))
-         for x in np.arange(cx - 0.6, cx + 0.6, 0.25)
-         for y in np.arange(cy - 0.6, cy + 0.6, 0.25)
-         for z in np.arange(0.05, 3.0, 0.25)]
-    )
-    wp = np.stack(
-        [rng.uniform(-2, 2, 5), np.linspace(-14, 14, 5),
-         rng.uniform(1.0, 2.0, 5)], -1,
-    )
-    cfg = OptimizerConfig(iters_step2=6)
-    assert sk.supports(map_cfg.grid_shape, 120, 12, cfg)
-    scn = solve_mod.make_scenario(wp, obss, map_cfg)
-    batch = solve_mod.Scenario(*jax.tree.map(lambda a: a[None], scn))
-    s_ref = solve_mod.solve_batch(batch, cfg=cfg, steps=(2,),
-                                  record_trace=False)
-    s_k = solve_mod.solve_batch_kernel(batch, cfg=cfg, steps=(2,),
-                                       interpret=True)
-    np.testing.assert_array_equal(np.asarray(s_k.n_accept),
-                                  np.asarray(s_ref.n_accept))
-    p1, _ = poly.sample_uniform(s_ref.coeff[0], s_ref.T[0], 100)
-    p2, _ = poly.sample_uniform(s_k.coeff[0], s_k.T[0], 100)
-    assert float(jnp.max(jnp.abs(p1 - p2))) < 1e-3
 
 
 def test_va_solve_matches_float64_oracle():
@@ -751,36 +424,6 @@ def test_dual_seed_matches_float64_oracle():
     assert dev < 1e-3, f"positional deviation {dev} m >= 1e-3"
 
 
-def test_nonmonotone_kernel_matches_reference_path():
-    """The whole-descent kernel's nonmonotone branch (interpret mode)
-    reproduces descent.minimize_batch decisions."""
-    map_cfg, obss, wp = _small_scene()
-    cfg = OptimizerConfig(iters_step1=4, iters_step2=10, accept_window=4)
-    scn = solve_mod.make_scenario(wp, obss, map_cfg)
-    batch = solve_mod.Scenario(
-        dist=scn.dist[None],
-        origin=scn.origin[None],
-        resolution=scn.resolution[None],
-        waypoints=jnp.asarray(wp, jnp.float32)[None],
-    )
-    s_ref = solve_mod.solve_batch(
-        batch, cfg=cfg, steps=(1, 2), record_trace=True
-    )
-    s_k = solve_mod.solve_batch_kernel(
-        batch, cfg=cfg, steps=(1, 2), interpret=True
-    )
-    np.testing.assert_array_equal(
-        np.asarray(s_k.n_accept), np.asarray(s_ref.n_accept)
-    )
-    np.testing.assert_allclose(
-        np.asarray(s_k.cost_trace), np.asarray(s_ref.cost_trace),
-        rtol=5e-3,
-    )
-    p1, _ = poly.sample_uniform(s_ref.coeff[0], s_ref.T[0], 100)
-    p2, _ = poly.sample_uniform(s_k.coeff[0], s_k.T[0], 100)
-    assert float(jnp.max(jnp.abs(p1 - p2))) < 1e-3
-
-
 def test_dual_seed_picks_per_lane_best():
     """seed_mode='dual' returns exactly the per-lane better of the two
     arms (reference seed, min-snap seed with its own budget)."""
@@ -895,77 +538,6 @@ def test_solve_server_microbatching():
         )
 
 
-def test_solve_kino_batch_kernel_matches_fallback():
-    """The kino-seeded batch (setKinoPath path) must produce the same
-    iterates through the whole-descent kernel (T/Df/dp0 overrides,
-    interpret mode) as through the vmapped JAX fallback."""
-    import numpy as np
-
-    from grad_traj_optimization_tpu import fixtures
-    from grad_traj_optimization_tpu.search import kinodynamic as kd
-
-    rng = np.random.default_rng(4)
-    cases, seeds = [], []
-    # keep only cases whose search REACHES (unreached lanes carry
-    # degenerate branch states whose refinement is numerically chaotic
-    # on both paths — not a meaningful comparison)
-    while len(cases) < 2:
-        c = fixtures.random_search_case(rng)
-        if c is None:
-            continue
-        s6 = np.concatenate([c[3], np.zeros(3)]).astype(np.float32)
-        g6 = np.concatenate([c[4], np.zeros(3)]).astype(np.float32)
-        r1 = kd.search(c[0], jnp.asarray(c[1], jnp.float32), c[2],
-                       s6, g6, lookup="gather")
-        if bool(r1.reached):
-            cases.append(c)
-    dists = np.stack([c[0] for c in cases])
-    origins = np.stack([c[1] for c in cases]).astype(np.float32)
-    res = cases[0][2]
-    starts = np.stack(
-        [np.concatenate([c[3], np.zeros(3)]) for c in cases]
-    ).astype(np.float32)
-    goals = np.stack(
-        [np.concatenate([c[4], np.zeros(3)]) for c in cases]
-    ).astype(np.float32)
-    rb = kd.search_batch(dists, origins, res, starts, goals,
-                         lookup="gather")
-    p6, v6, a6, t6 = kd.resample_knots_batch(
-        rb.pos, rb.vel, rb.acc, rb.times, 6
-    )
-    cfg = OptimizerConfig(iters_step2=4)
-    ress = np.full((2,), res, np.float32)
-    sol_fb = solve_mod.solve_kino_batch(
-        dists, origins, ress, p6, v6, a6, t6, cfg=cfg, steps=(2,)
-    )
-    T = jnp.asarray(t6, jnp.float32)
-    Df, dp0 = jax.vmap(solve_mod.qp.kino_d)(
-        jnp.asarray(p6, jnp.float32), jnp.asarray(v6, jnp.float32),
-        jnp.asarray(a6, jnp.float32),
-    )
-    scn = solve_mod.Scenario(
-        dist=jnp.asarray(dists), origin=jnp.asarray(origins),
-        resolution=jnp.asarray(ress),
-        waypoints=jnp.asarray(p6, jnp.float32),
-    )
-    sol_k = solve_mod.solve_batch_kernel(
-        scn, cfg=cfg, steps=(2,), interpret=True, dp0=dp0, T=T, Df=Df
-    )
-    # same discipline as test_solve_batch_kernel_matches_reference_path:
-    # the kernel's bf16 hi/mid grid planes are ~1e-4 m faithful, so
-    # compare costs and sampled trajectories at the parity budget
-    np.testing.assert_allclose(
-        np.asarray(sol_fb.cost), np.asarray(sol_k.cost), rtol=5e-3
-    )
-    for b in range(2):
-        p1, _ = poly.sample_uniform(sol_fb.coeff[b], sol_fb.T[b], 100)
-        p2, _ = poly.sample_uniform(sol_k.coeff[b], sol_k.T[b], 100)
-        assert float(jnp.max(jnp.abs(p1 - p2))) < 1e-3
-    np.testing.assert_array_equal(
-        np.asarray(sol_fb.T), np.asarray(sol_k.T)
-    )
-
-
 def test_solve_kino_batch_race_picks_per_lane_winner():
     """Round-5: the batched duration race returns, per lane, the
     lower-cost converged arm (never worse than the 1.0-stretch arm on
@@ -990,7 +562,7 @@ def test_solve_kino_batch_race_picks_per_lane_winner():
         [np.concatenate([c[4], np.zeros(3)]) for c in cases]
     ).astype(np.float32)
     r = kd.search_batch(dists, origins, res, starts, goals,
-                        lookup="gather", max_iters=12, beam=32)
+                        max_iters=12, beam=32)
     p6, v6, a6, t6 = kd.resample_knots_batch(r.pos, r.vel, r.acc,
                                              r.times, 6)
     ress = np.full((3,), res, np.float32)
@@ -1070,7 +642,7 @@ def test_mission_server_end_to_end():
     cfg = OptimizerConfig(iters_step2=8)
     srv = serving.MissionServer(
         dist, origin, res, cfg=cfg, max_batch=4, max_wait_ms=50.0,
-        beam=16, max_iters=10, retries=0, lookup="gather",
+        beam=16, max_iters=10, retries=0,
         stretches=(1.0,),
     )
     try:
